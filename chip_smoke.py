@@ -17,8 +17,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
               every env is held against a float64 run within a limit set
               by its own float32 noise floor (see phase_kernels).  At 8
               iterations every output is finite.  Each mode's Gram alone
-              (the kernel's Gram device function) is held within 1e-5 of
-              a float64 Gram.  Both modes and the plain version are timed.
+              (the first iteration's H through the kernel's own staging,
+              penalty and Gram code) is held within 1e-5 of a float64
+              Gram.  Both modes are timed on each input set, with each
+              set's bound (the kernel's work follows the set's active
+              contact slots); the plain version on the after-step set,
+              the headline, and each mode again there at 4x --envs (the
+              inputs repeated).  Per mode, one line of the kernel's
+              resources (resident envs per SM from the CUDA occupancy
+              API, registers, spill bytes; pooled and uniform layouts)
+              and one of its phase split (SM cycles per phase from the
+              kernel's clock-stamp profile entry).
   4. main     drives the configuration of record (Go1, torque, full
               collision table, condim pools (8, 28, 12), 8 Newton
               iterations) through its entry points: policy sample, then
@@ -27,7 +36,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
               launched exactly 10 times per control step (the mxu one
               never), and that one control step on the card agrees with
               the plain path on the CPU at a small batch.  Prints control
-              steps/s and the per-phase device ms.
+              steps/s, the kernel's time in both modes on the main path's
+              states after its timed steps, and the per-phase device ms.
   5. train    PPO at the training configuration of record (PPOConfig()
               defaults, 4096 envs x 32 steps): init, then one
               train_iteration with QTPU_GRAM unset and one with
@@ -42,7 +52,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
               (launches in the run of the path that runs it, named in
               launches_over; max abs error against its plain version on
               the stable envs at 2 iterations, named in max_abs_err_over;
-              times and bound); the card's name and power limit; and last
+              times and bound on the after-step set, the bound counting
+              the operations and bytes of its active contact slots, the
+              work the function needs); the
+              card's name and power limit; and last
               the line {"ok": true, "device": {"platform": "gpu", ...}}.
 
 The main and train phases select the Gram mode through QTPU_GRAM, as the
@@ -117,21 +130,38 @@ def solver_inputs(env, qpos, qvel, ctrl, params):
     return newton_args(M, qs, torch.zeros_like(qs), efc)
 
 
-def newton_counts(args, kw, iterations):
+def newton_counts(args, kw, iterations, active_only=True):
     """(operations, Gram operations, bytes) one launch needs on these
     inputs; the first count includes the second.
 
-    Bytes: every input read once, every output written once.  Operations
-    per env and iteration, counting a multiply-add as 2: z = J a - aref
-    (2 ne nv), the row penalties and the rank-1 cone rows, grad (2 nv^2 +
-    2 ne nv), the upper-triangle Gram over the J rows and the 3 rank-1
-    rows per friction contact (the weighted rows w J once, one multiply
-    per row and column, then a multiply-add per row and pair: the Gram
-    operations), the Cholesky (nv^3/3 multiply-adds) and the two
-    triangular solves (2 nv^2), J d and M d, and 18 penalty evaluations of
-    the line search (17 ladder candidates and the parabolic vertex).  The
-    Levenberg retry, taken only when the first factorization fails, is
-    not counted (it adds one more Cholesky, under 2% of an iteration).
+    The work depends on the data: a contact slot that is not active
+    (con_active 0) has zero forces, weights and rank-1 rows, adds nothing
+    to grad or H, adds to the penalty only a constant below float32
+    resolution (tests/test_torch_newton_layout.py), and the kernel skips
+    it.  With `active_only` (the bound of the kernels line) each env's
+    rows and contacts are its dof-friction and limit rows and its active
+    slots; without it, every slot (the count of a kernel that skipped
+    none).  Operations and bytes count the same rows and contacts.
+
+    Operations per env and iteration, counting a multiply-add as 2: z = J
+    a - aref (2 nv per row), the row penalties and the rank-1 cone rows,
+    grad (2 nv^2 + 2 nv per row), the upper-triangle Gram over the rows
+    and the 3 rank-1 rows per friction contact (the weighted rows w J
+    once, one multiply per row and column, then a multiply-add per row
+    and pair: the Gram operations), the Cholesky (nv^3/3 multiply-adds)
+    and the two triangular solves (2 nv^2), J d and M d, and 18 penalty
+    evaluations of the line search (17 ladder candidates and the
+    parabolic vertex).  The Levenberg retry, taken only when the first
+    factorization fails, is not counted (it adds one more Cholesky, under
+    2% of an iteration).
+
+    Bytes: what the function must read, each input element once, and
+    write, each output once: M, qs and warm; J's rows and aref of the
+    dof-friction and limit rows and of the counted slots; D of the
+    dof-friction and limit rows, R and floss of the dof-friction rows,
+    active of the limit rows; con_active of every slot (which slots
+    count); scale, fscale and con_dim_mask of each counted slot's condim
+    entries, its Rn and mu; qacc, qfrc and every row of f.
 
     Bounds: "vpu" runs everything on the CUDA cores, so its bound is
     operations / 67 TFLOP/s (FP32).  "mxu" runs the Gram on the FP64
@@ -141,28 +171,49 @@ def newton_counts(args, kw, iterations):
     M, J = args[0], args[3]
     B, nv, ne = M.shape[0], M.shape[-1], J.shape[1]
     nf, nl = kw["nf"], kw["nl"]
-    K = args[9].shape[1]
+    nfl = nf + nl
+    conact = args[12].double()
+    K = conact.shape[1]
     pools = kw["pool_dims"] or ((K, 6),)
-    nu = sum(3 * Kp for Kp, dp in pools if dp > 1)
-    cone_rows = sum(Kp * dp for Kp, dp in pools)
-    per_con = sum(Kp * (8 * dp + 20) for Kp, dp in pools)  # u, zones, S
-    rank1 = sum(Kp * nv * (2 * dp + 3) for Kp, dp in pools if dp > 1)
     npairs = nv * (nv + 1) // 2
-    S_eval = 10 * (nf + nl) + per_con + 2 * ne          # z + alpha Jd
-    gram = (2 * npairs + nv) * (ne + nu)
+    # per env: rows, rank-1 rows, cone operations (u, zones, S), rank-1
+    # ops, input words of the counted slots (scale, fscale, mask; Rn, mu)
+    rows = torch.full((B,), float(nfl), dtype=torch.float64, device=M.device)
+    nu = torch.zeros_like(rows)
+    per_con = torch.zeros_like(rows)
+    rank1 = torch.zeros_like(rows)
+    con_words = torch.zeros_like(rows)
+    co = 0
+    for Kp, dp in pools:
+        n = (conact[:, co:co + Kp].sum(1) if active_only
+             else torch.full_like(rows, float(Kp)))
+        co += Kp
+        rows += n * dp
+        per_con += n * (8 * dp + 20)
+        con_words += n * (3 * dp + 2)
+        if dp > 1:
+            nu += 3 * n
+            rank1 += n * nv * (2 * dp + 3)
+    S_eval = 10 * nfl + per_con + 2 * rows                 # z + alpha Jd
+    gram = (2 * npairs + nv) * (rows + nu)
     it = (
-        2 * ne * nv                      # z
-        + 8 * (nf + nl) + per_con + 4 * cone_rows + rank1  # f, w, U
-        + 2 * nv * nv + 2 * ne * nv      # grad
-        + gram + 2 * nv * nv             # Gram + M
-        + 2 * nv ** 3 // 3 + 2 * 2 * nv * nv    # Cholesky + solves
-        + 2 * ne * nv + 2 * nv * nv + 4 * nv    # Jd, Md, qa, qb
-        + 18 * (S_eval + 4)              # line search
+        2 * rows * nv                                    # z
+        + 8 * nfl + per_con + 4 * (rows - nfl) + rank1   # f, w, U
+        + 2 * nv * nv + 2 * rows * nv                    # grad
+        + gram + 2 * nv * nv                             # Gram + M
+        + 2 * nv ** 3 // 3 + 2 * 2 * nv * nv             # Cholesky + solves
+        + 2 * rows * nv + 2 * nv * nv + 4 * nv           # Jd, Md, qa, qb
+        + 18 * (S_eval + 4)                              # line search
     )
-    final = 2 * ne * nv + 8 * (nf + nl) + per_con + 4 * cone_rows + 2 * ne * nv
-    flops = B * (iterations * it + final)
-    nbytes = 4 * (sum(a.numel() for a in args) + B * (2 * nv + ne))
-    return flops, B * iterations * gram, nbytes
+    final = 2 * rows * nv + 8 * nfl + per_con + 4 * (rows - nfl) + 2 * rows * nv
+    flops = (iterations * it + final).sum().item()
+    gram_flops = iterations * gram.sum().item()
+    words = (nv * nv + 2 * nv                            # M, qs, warm
+             + rows * (nv + 1)                           # J rows, aref
+             + nfl + 2 * nf + nl + K                     # D, R, floss, active, con_active
+             + con_words                                 # the counted slots
+             + 2 * nv + ne)                              # qacc, qfrc, f
+    return flops, gram_flops, 4 * words.sum().item()
 
 
 def bound_ms(flops, gram_flops, nbytes, mode):
@@ -207,10 +258,47 @@ def kernel_input_sets(env, gen, dev, B, seed):
     return sets
 
 
+def time_kernel(args, kw, it, reps=20):
+    """Both Gram modes of the kernel timed on one input set, in the order
+    vpu, mxu, mxu, vpu (each the mean device ms of `reps` launches after a
+    warm-up), with each mode's bound on these inputs (newton_counts):
+    {mode: {ms, ms_runs, bound_ms, bound_by}, active_slots_per_env,
+    flops, gram_flops, bytes}.  These launches are not checked against
+    the launch counts."""
+    from quadruped_tpu_torch.ops import newton as N
+
+    runs = {mode: [] for mode in MODES}
+    for mode in ("vpu", "mxu", "mxu", "vpu"):
+        runs[mode].append(cuda_time_ms(
+            lambda: N.newton_solve(*args, iterations=it, gram_mode=mode, **kw), reps))
+    flops, gram_flops, nbytes = newton_counts(args, kw, it)
+    out = dict(active_slots_per_env=args[12].sum().item() / args[0].shape[0],
+               flops=flops, gram_flops=gram_flops, bytes=nbytes)
+    for mode in MODES:
+        bound, by = bound_ms(flops, gram_flops, nbytes, mode)
+        out[mode] = dict(ms=sum(runs[mode]) / 2, ms_runs=runs[mode],
+                         bound_ms=bound, bound_by=by)
+    return out
+
+
+def log_timing(what, B, it, t):
+    log(f"kernel timing [{what}] ({B} envs, {it} iterations, "
+        f"{t['active_slots_per_env']:.2f} active contact slots per env): "
+        + "; ".join(f"{mode} {t[mode]['ms_runs'][0]:.4f} / "
+                    f"{t[mode]['ms_runs'][1]:.4f} ms, bound "
+                    f"{t[mode]['bound_ms']:.4f} ms by {t[mode]['bound_by']}"
+                    for mode in MODES)
+        + f" ({t['flops'] / 1e9:.3f} GFLOP, of it Gram "
+          f"{t['gram_flops'] / 1e9:.3f}; {t['bytes'] / 1e6:.2f} MB)")
+
+
 def phase_kernels(env, gen, dev, B, seed):
     """Each Gram mode of the kernel vs the plain version on the card, per
-    input set; the isolated Gram vs float64; times and bounds."""
+    input set; the isolated Gram vs float64; times and bounds per set."""
     from quadruped_tpu_torch.ops import newton as N
+
+    it = env.m.opt.iterations
+    timings = {}
 
     report = {mode: {"max_abs_err": 0.0, "max_abs_err_all_envs": 0.0,
                      "max_scaled_err_2it": 0.0, "max_scaled_err_2it_well": 0.0,
@@ -343,20 +431,22 @@ def phase_kernels(env, gen, dev, B, seed):
             f"{e_kts['mxu'][i].item():.4e}, plain {e_pt[i].item():.4e}, moved "
             f"runs up to {max(far[:4]):.4e} (float32 summation) and "
             f"{max(far[4:]):.4e} (float64-accumulated Gram)")
+        t = timings[name] = time_kernel(args, kw, it)
+        log_timing(name, B, it, t)
         if name == "after_steps":
             timed = (args, kw)
 
-    # the Gram alone, through the kernel's own device function, against a
-    # float64 gram_torch: separates a wrong fragment layout from the line
-    # search (the reference measured ~2e-6 for its MXU Gram,
-    # tests/test_ops.py:160-166)
+    # the Gram alone, through the kernel's own staging, penalty and Gram
+    # device code at the warm start, against a float64 gram_torch:
+    # separates a wrong fragment layout from the line search (the
+    # reference measured ~2e-6 for its MXU Gram, tests/test_ops.py:160-166)
     args, kw = timed
     J, M = args[3], args[0]
     z = (J @ args[2][..., None])[..., 0] - args[4]
     _f, w, U, wU = N.Penalty(J, *args[5:], **kw).fw(z, True)
     H64 = N.gram_torch(*(x.double() for x in (J, w, U, wU, M)))
     for mode in MODES:
-        H = N.gram(J, w, U, wU, M, mode)
+        H = N.gram(*args, gram_mode=mode, **kw)
         err = ((H.double() - H64).abs().amax((1, 2))
                / (1.0 + H64.abs().amax((1, 2)))).max().item()
         log(f"gram {mode} (after_steps, B={B}, nu={U.shape[1]}): H vs float64, "
@@ -365,26 +455,67 @@ def phase_kernels(env, gen, dev, B, seed):
             raise RuntimeError(f"{mode} Gram vs float64: {err:.3e} > 1e-5")
         report[mode]["gram_err_vs_float64"] = err
 
-    it = env.m.opt.iterations
-    times = {mode: [] for mode in MODES}
-    for mode in ("vpu", "mxu", "mxu", "vpu"):
-        times[mode].append(cuda_time_ms(
-            lambda: N.newton_solve(*args, iterations=it, gram_mode=mode, **kw), 20))
+    # the headline set: after steps; the plain version, the count over
+    # every slot and 4x the batch (the inputs repeated: does the time
+    # follow the waves of resident envs?) there alone
+    t = timings["after_steps"]
     plain_ms = cuda_time_ms(lambda: N.newton_core_torch(*args, iterations=it, **kw), 3)
-    flops, gram_flops, nbytes = newton_counts(args, kw, it)
+    flops_all, gram_all, bytes_all = newton_counts(args, kw, it, active_only=False)
+    bound_all = bound_ms(flops_all, gram_all, bytes_all, "vpu")[0]
+    args4 = [a.repeat(4, *([1] * (a.dim() - 1))).contiguous() for a in args]
     for mode in MODES:
-        bound, by = bound_ms(flops, gram_flops, nbytes, mode)
+        ms4 = cuda_time_ms(
+            lambda: N.newton_solve(*args4, iterations=it, gram_mode=mode, **kw), 10)
         report[mode].update(
-            ms=sum(times[mode]) / 2, ms_runs=times[mode], plain_ms=plain_ms,
-            flops=flops, gram_flops=gram_flops, bytes=nbytes, bound_ms=bound,
-            bound_by=by,
+            **t[mode], plain_ms=plain_ms, flops=t["flops"],
+            gram_flops=t["gram_flops"], bytes=t["bytes"], ms_4x_envs=ms4,
+            bound_ms_every_slot=bound_all, flops_every_slot=flops_all,
+            bytes_every_slot=bytes_all,
+            by_set={name: dict(tt[mode], active_slots_per_env=tt["active_slots_per_env"])
+                    for name, tt in timings.items()},
         )
         log(f"kernel timing {mode} ({B} envs, {it} iterations, after_steps "
-            f"inputs): kernel {times[mode][0]:.4f} / {times[mode][1]:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms by {by} "
-            f"({flops / 1e9:.3f} GFLOP, of it Gram {gram_flops / 1e9:.3f}, "
-            f"{nbytes / 1e6:.2f} MB)")
+            f"inputs): kernel {t[mode]['ms']:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {t[mode]['bound_ms']:.4f} ms by {t[mode]['bound_by']}; "
+            f"counting every slot: {flops_all / 1e9:.3f} GFLOP, "
+            f"{bytes_all / 1e6:.2f} MB, bound {bound_all:.4f} ms; at {4 * B} "
+            f"envs (the inputs x4) {ms4:.4f} ms ({ms4 / t[mode]['ms']:.3f}x)")
+    kernel_profile(env, args, kw, it, report)
     return report
+
+
+def kernel_profile(env, args, kw, it, report):
+    """Per mode: the solve kernel's resources (resident envs per SM from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor, registers, spills)
+    on the pooled layout of these inputs and on the uniform layout with
+    as many slots, and the split of its SM cycles by phase from the
+    profile entry (SM clock stamps at the phase boundaries, summed over
+    envs and iterations; "other" is the rest of the total: the final
+    forces and the stamps themselves)."""
+    from quadruped_tpu_torch.ops import newton as N
+
+    nv, K = args[0].shape[-1], args[9].shape[1]
+    for mode in MODES:
+        res = {layout: N.kernel_resources(nv, kw["nf"], kw["nl"], K, pools, mode)
+               for layout, pools in (("pooled", kw["pool_dims"]),
+                                     ("uniform", None))}
+        report[mode]["resources"] = res
+        log(f"kernel resources {mode}: " + "; ".join(
+            f"{layout} {r['envs_per_sm']} envs per SM ({r['blocks_per_sm']} "
+            f"blocks of {r['envs_per_block']} envs, {r['smem_bytes_per_block']} "
+            f"shared bytes per block), {r['registers']} registers, "
+            f"{r['local_bytes']} local (spill) bytes per thread"
+            for layout, r in res.items()))
+        *_out, cyc = N.newton_profile(*args, iterations=it, gram_mode=mode, **kw)
+        tot = cyc.sum(0).double()
+        shares = {ph: (tot[i] / tot[-1]).item() for i, ph in enumerate(N.PHASES)}
+        shares["other"] = 1.0 - sum(shares.values())
+        per_env = (tot[-1] / cyc.shape[0]).item()
+        report[mode]["phase_shares"] = shares
+        report[mode]["cycles_per_env"] = per_env
+        log(f"kernel phases {mode} ({cyc.shape[0]} envs, {it} iterations, "
+            f"{per_env:.0f} SM cycles per env): "
+            + ", ".join(f"{ph} {100 * v:.1f}%" for ph, v in shares.items()))
 
 
 def phase_main(env, policy, gen, dev, B, steps):
@@ -428,6 +559,14 @@ def phase_main(env, policy, gen, dev, B, steps):
         f"{B * steps / dt:.1f} env control steps/s; "
         f"Newton launches {launches} ({launches / steps:g} per control step)")
 
+    # the kernel alone on the main path's states after its timed steps
+    # (zero control and warm start, as the input sets of phase_kernels)
+    kargs, kkw = solver_inputs(env, state.qpos, state.qvel,
+                               torch.zeros((B, env.nu), device=dev), state.params)
+    t_main = time_kernel(kargs, kkw, env.m.opt.iterations)
+    log_timing(f"main path states after {3 + steps} control steps", B,
+               env.m.opt.iterations, t_main)
+
     # per-phase device ms, in a separate instrumented run
     TIMER.reset()
     TIMER.enabled = True
@@ -442,7 +581,8 @@ def phase_main(env, policy, gen, dev, B, steps):
     log("main phases (device ms per control step, 10 substeps): "
         + json.dumps({k: round(v, 4) for k, v in per_step.items()}))
     return {"launches": launches, "steps_per_s": steps / dt,
-            "env_steps_per_s": B * steps / dt, "phases_ms": per_step}
+            "env_steps_per_s": B * steps / dt, "phases_ms": per_step,
+            "kernel_on_main_states": t_main}
 
 
 def phase_train(env, dev, seed):
@@ -698,7 +838,8 @@ def main() -> int:
     log(json.dumps({
         "main": {"envs": args.envs, "control_steps": args.steps,
                  "env_steps_per_s": mrep["env_steps_per_s"],
-                 "phases_ms": mrep["phases_ms"]},
+                 "phases_ms": mrep["phases_ms"],
+                 "kernel_on_main_states": mrep["kernel_on_main_states"]},
         "newton": {mode: {k: v for k, v in krep[mode].items()
                           if k not in ("ms", "plain_ms", "bound_ms", "bound_by",
                                        "max_abs_err")}

@@ -2,87 +2,136 @@
 //
 // Replaces the Pallas TPU kernel quadruped_tpu/ops/newton.py
 // (_newton_solve_jit -> pl.pallas_call, body newton_core) in both of its
-// Gram modes, "vpu" and "mxu" (see "Gram modes" below).  Same function,
-// per env: warm-started primal Newton on
+// Gram modes, "vpu" and "mxu".  Same function, per env: warm-started
+// primal Newton on
 //   Phi(a) = 1/2 |a - a_smooth|_M^2 + sum_i s_i(J a - aref)
 // with Huber dof-friction rows, one-sided limit rows and elliptic cones
 // per condim pool; H = M + J^T diag(w) J + 3 rank-1 cone rows per friction
 // contact + 1e-10 I; an nv x nv Cholesky with a 1e-3*maxdiag Levenberg
 // retry and a zero step if both factorizations fail; a ladder line search
-// (NaN-safe argmin) with one parabolic refinement.  Outputs qacc, the row
-// forces f and qfrc = J^T f.
+// (NaN-safe first-minimum argmin) with one parabolic refinement.  Outputs
+// qacc, the row forces f and qfrc = J^T f.
 //
-// What bounds it: FP32 arithmetic, not bytes.  At the configuration of
-// record (nv 18, 168 rows, 48 contacts, 8 iterations) an env does about
-// 1.2 MFLOP per solve on 13 KB of inputs, ~90 FLOP per byte, far above
-// the card's FP32/bandwidth ratio (~20).  The Gram (171 upper pairs x 276
-// weighted rows) and the 18 penalty evaluations of the line search are
-// the bulk of it.
+// What bounds it.  FP32 operations, not bytes (H100 SXM peaks: 67
+// TFLOP/s, 3.35 TB/s).  Only the active contact slots do work (2-5 of 48
+// on the configuration of record's states), and chip_smoke.py counts
+// operations and bytes on those: at 4096 envs and 8 iterations on its
+// after-step states (2.17 active slots per env), 1.157 GFLOP = 0.0173 ms
+// against 22.6 MB = 0.0067 ms.  Counting every slot, as a kernel that
+// skipped none would work, 6.049 GFLOP = 0.0903 ms.
 //
-// Design: one thread block per env (the TPU kernel put 128 envs on the
-// lane axis instead).  The env's J and M are staged into shared memory
-// once and stay there across all iterations and line-search candidates,
-// as VMEM held them on the TPU, so the solve reads device memory once.
-// Threads spread over rows for z, f and w, over contacts for the cone
-// zones and rank-1 rows, over the upper-triangle (i, j) pairs for the
-// Gram; one warp factors and solves the nv x nv system (a lane per row);
-// each warp evaluates whole ladder candidates with lanes over rows and
-// contacts, so every reduction is a warp shuffle in a fixed order and the
-// result is deterministic.  The TPU kernel's edge padding of the batch to
-// 128 lanes has no counterpart: the grid has exactly one block per env.
+// What held the previous design back (one 128-thread block per env,
+// everything in shared memory; its clock-stamp phase split on an NVIDIA
+// H100 80GB HBM3 at 700 W, 4096 envs, 8 iterations: ladder 28%, Cholesky
+// and solves 24%, z and f/w with the stored rank-1 rows 20%, Gram 12-15%,
+// argmin and vertex 7%, grad 3%): 123 registers x 128 threads left 4
+// envs resident per SM; about 12 __syncthreads per iteration while one
+// warp ran the serial phases; a Cholesky through shared memory with 4
+// __syncwarp per pivot; 18 penalty evaluations with a division per
+// contact row and lanes on contacts of different condim; the rank-1 rows
+// written to shared memory by 36 threads; and every inactive contact slot
+// carried through the Gram and the line search.
+//
+// Design (each point against one of those):
+//  * One warp per env, up to 4 envs per block (make_params lays out an
+//    env's shared arrays and takes the block size at which the occupancy
+//    API keeps the most envs resident; the ragged last block's spare
+//    warps return at once).  No __syncthreads: only __syncwarp.  Every
+//    reduction is a warp shuffle or a sequential sum in a fixed order, so
+//    an env's result does not depend on the launch.
+//  * Shared memory per env: J (ne x nv, stride nv: lanes over rows read
+//    float2s, which for nv 18 hit all 32 banks once per half-warp), aref,
+//    z, f, Jd, per-row tables and per-contact scalars, 18,960 B on the
+//    pooled layout, so 12 envs per SM; M, a, qs, delta, grad and the
+//    Cholesky factor live in registers (lane i: row i).
+//  * No stored U: the rank-1 rows of a friction contact are formed in
+//    registers from the contact's J rows inside the Gram.
+//  * Inactive contact slots (con_active 0) are skipped in grad, Gram and
+//    line search: their f, w and rank-1 weights are exactly 0, so those
+//    sums are unchanged; in the line search each would add the same
+//    alpha-independent ~1e-30 Rn to S, below float32 resolution.
+//  * Cholesky and triangular solves in registers: lane i holds row i of
+//    H; columns broadcast by __shfl_sync; nv is a template parameter
+//    (instantiated for 18, the Go1 and Go2 width; other widths raise).
+//    The Levenberg retry refactors from the Gram kept in shared memory.
+//  * Line search with the 17 candidates (16 rungs and 0) on the lanes:
+//    every lane walks the same rows and contacts, so shared reads are
+//    broadcasts and condim causes no divergence; sc*mk/Rn and
+//    1/(1+mu^2) are tabled per solve, so no candidate divides.  The
+//    argmin is a shuffle reduction on (phi, index), first minimum on
+//    ties; the vertex is evaluated with lanes over rows and contacts.
+//  * vpu Gram: lane b < 21 owns a 3 x 3 block of the 6 x 6 block upper
+//    triangle (nv 18): per weighted row 6 loads, 3 multiplies and 9 FMAs,
+//    the J rows summed first and the rank-1 rows apart, as before.
+//  * mxu Gram: the warp computes the 6 upper 8 x 8 tiles of the padded
+//    24 x 24 Gram with FP64 mma.sync.m8n8k4, six independent accumulators
+//    per k-step; friction and limit rows in k-steps of 4, each active
+//    contact's rows in k-steps of its own, and its three rank-1 rows as
+//    one more k-step built in registers.
+//
+// Precision (mxu).  Operands widened from float32 to double, w X formed
+// in double (exact: the product of two floats), accumulation in double
+// on the FP64 tensor cores (DMMA), the sum rounded to float32 once before
+// M is added.  Every product and sum after the widening carries ~1e-16
+// relative error, so the float32 Gram is within one rounding of the exact
+// J^T diag(w) J + U^T diag(wU) U: no less accurate than the vpu path's
+// float32 sum, and H stays positive definite wherever the vpu path's
+// does (the exact Gram is positive semidefinite, M is positive definite,
+// and the perturbation is a float32 rounding of each entry).  A single
+// TF32 pass (10-bit mantissa) would perturb H by ~1e-3 relative and break
+// that; 3xTF32 would need three MMAs and a split of every operand, where
+// DMMA needs one MMA and no split.  On the H100 SXM, FP64 tensor cores
+// and FP32 CUDA cores have the same dense peak, 67 TFLOP/s.
 //
 // Built without --use_fast_math: the solve depends on IEEE semantics (a
 // negative pivot gives NaN, which triggers the Levenberg retry; NaN line
 // search candidates lose the argmin; non-finite steps are zeroed).
 //
-// Gram modes.  Both form the same H; the kernel is a template on the
-// mode, and everything but the Gram is shared.
-//  * "vpu" (gram_vpu): on the CUDA cores, one thread per upper-triangle
-//    pair (i, j), a float32 dot product over the J rows and then over the
-//    rank-1 rows, as the reference's VPU path sums them.
-//  * "mxu" (gram_mxu): on the tensor cores, replacing the reference's
-//    MXU Gram (newton.py:363-399: envs and dofs packed on the 128-lane
-//    axis, one-hot dot_generals at precision "highest").  That lane
-//    packing is a layout for the TPU's vregs and has no counterpart: here
-//    each env's product A B, A = X^T (nv x n), B = diag(wx) X (n x nv),
-//    runs as warp-level mma.sync on the rows X already in shared memory.
-//    nv is padded to whole 8 x 8 output tiles (18 -> 24: 3 x 3 tiles, of
-//    which the 6 on or above the diagonal are computed; the 4 warps take
-//    tiles in turn, so no sum is split across warps and the result is
-//    deterministic); the row count to whole k-steps of 4, with zeros.
-//    The rank-1 cone rows (3 per friction contact, 108 on the pooled
-//    layout) join the same MMA as extra k rows after the J rows, so the
-//    whole Gram runs on the tensor cores.
-//    Precision: FP64 tensor cores (DMMA, mma.sync.m8n8k4.f64), operands
-//    widened from float32 to double, accumulation in double, the sum
-//    rounded to float32 once before M is added.  The weighted operand
-//    w X (two float32 factors) is exact in double, and every product and
-//    sum after it carries ~1e-16 relative error, so the float32 Gram is
-//    within one rounding of the exact J^T diag(w) J + U^T diag(wU) U: no
-//    less accurate than the vpu path's float32 sum, and
-//    H stays positive definite wherever the vpu path's does (the exact
-//    Gram is positive semidefinite, M is positive definite, and the
-//    perturbation is a float32 rounding of each entry).  A single TF32
-//    pass (10-bit mantissa) would perturb H by ~1e-3 relative and break
-//    that (the port's precision rule); 3xTF32 would recover float32
-//    accuracy with three MMAs and a split of every operand, where DMMA
-//    needs one MMA and no split.  On the H100 SXM, FP64 tensor cores
-//    and FP32 CUDA cores have the same dense peak, 67 TFLOP/s.
+// Masks (con_dim_mask, con_active) are 0/1 floats, as the wrapper
+// documents; the tables fold them in exactly under that rule.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
-#define NTHREADS 128
-#define NWARPS (NTHREADS / 32)
-#define MAX_NV 32
 #define MAX_POOLS 4
 #define MAX_LADDER 32
+#define MAX_EPB 4
 #define FULL 0xffffffffu
+#define NPHASE 9  // phases of the profile (ops/newton.py:PHASES)
+
+// kernel kinds: the solve, the solve with phase stamps, the Gram alone
+#define KIND_SOLVE 0
+#define KIND_PROFILE 1
+#define KIND_GRAM 2
+
+// One env's arrays in shared memory, in this order (env_layout computes
+// their offsets in floats).  J (ne, nv); aref, z, jd, f (ne), jd and f
+// adjoining: between the Gram and Jd they hold the Gram and then the
+// Cholesky factor (nv x nv); wfl, fD (nf + nl): weights and D of the
+// dof-friction and limit rows; fl, fR (nf); lact (nl); cc, cfm, cSm, csc
+// (contact rows): sc*mk/Rn, fsc*mk, sc*mk, sc; Rn, mu, imu = 1/(1+mu^2),
+// cac, wk, wV0, wVn (contacts); act (K ints): the active contacts, in
+// slot order, built once per solve.
+enum {
+  O_J, O_AREF, O_Z, O_JD, O_F, O_WFL, O_FD, O_FL, O_FR, O_LACT, O_CC, O_CFM,
+  O_CSM, O_CSC, O_RN, O_MU, O_IMU, O_CAC, O_WK, O_WV0, O_WVN, O_ACT, NOFF
+};
+
+// an active contact of the list at O_ACT: slot k, condim dp, first
+// contact row rc (make_params checks K < 256 and the rows < 2^19)
+__device__ __forceinline__ void unpack_act(int v, int& k, int& dp, int& rc) {
+  k = v & 255;
+  dp = (v >> 8) & 15;
+  rc = v >> 12;
+}
 
 struct Params {
-  int B, nv, nf, nl, ne, ktot, npool, iterations, nladder, nu;
+  int B, nf, nl, ne, K, npool, iterations, nladder, epb, env_floats;
   int pool_k[MAX_POOLS], pool_dim[MAX_POOLS];
-  int pool_row[MAX_POOLS], pool_con[MAX_POOLS], pool_u[MAX_POOLS];
+  int pool_row[MAX_POOLS];  // first contact row of the pool
+  int pool_con[MAX_POOLS];  // first contact slot of the pool
+  int off[NOFF];
   float ladder[MAX_LADDER + 1];  // nladder rungs, then 0
 };
 
@@ -90,163 +139,135 @@ struct Inputs {
   const float *M, *qs, *warm, *J, *aref, *D, *R, *floss, *active;
   const float *scale, *fscale, *maskd, *conact, *Rn, *mu;
   float *qacc, *f, *qfrc;
+  long long* prof;  // KIND_PROFILE: (B, NPHASE + 1) cycles
+  float* H;         // KIND_GRAM: (B, nv, nv)
 };
 
-// shared-memory layout, in floats
-struct Layout {
-  int J, M, H, L, U, wU, aref, D, R, fl, act, z, Jd, f, w;
-  int sc, fsc, mk, Rn, mu, cac, vec, phis, total;
-};
-
-__host__ __device__ inline Layout make_layout(const Params& p) {
-  Layout s;
-  int o = 0;
-  int nv2 = p.nv * p.nv;
-  s.J = o; o += p.ne * p.nv;
-  s.M = o; o += nv2;
-  s.H = o; o += nv2;
-  s.L = o; o += nv2;
-  s.U = o; o += p.nu * p.nv;
-  s.wU = o; o += p.nu;
-  s.aref = o; o += p.ne;
-  s.D = o; o += p.ne;
-  s.R = o; o += p.ne;
-  s.fl = o; o += p.ne;
-  s.act = o; o += p.ne;
-  s.z = o; o += p.ne;
-  s.Jd = o; o += p.ne;
-  s.f = o; o += p.ne;
-  s.w = o; o += p.ne;
-  s.sc = o; o += p.ktot * 6;
-  s.fsc = o; o += p.ktot * 6;
-  s.mk = o; o += p.ktot * 6;
-  s.Rn = o; o += p.ktot;
-  s.mu = o; o += p.ktot;
-  s.cac = o; o += p.ktot;
-  s.vec = o; o += 8 * MAX_NV;  // a, qs, Mda, grad, delta, Md, scratch x2
-  s.phis = o; o += MAX_LADDER + 8;
-  s.total = o;
-  return s;
-}
-
-// vec slots
-#define V_A 0
-#define V_QS 1
-#define V_MDA 2
-#define V_GRAD 3
-#define V_DELTA 4
-#define V_MD 5
-// phis slots after the ladder: scalars
-#define S_QA 0
-#define S_QB 1
-#define S_ALPHA 2
-
-__device__ inline float clampf_nan(float x, float lo, float hi) {
+__device__ __forceinline__ float clampf_nan(float x, float lo, float hi) {
   // jnp.clip semantics: NaN stays NaN
   x = x < lo ? lo : x;
   return x > hi ? hi : x;
 }
 
-__device__ inline float warp_sum(float v) {
+__device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
 }
 
-// pool of contact k: returns p and fills (kk, dim, first row, U base)
-__device__ inline int pool_of(const Params& p, int k, int& kk, int& dp,
-                              int& row, int& ubase) {
-  int q = 0;
-  while (q + 1 < p.npool && k >= p.pool_con[q + 1]) ++q;
-  kk = k - p.pool_con[q];
-  dp = p.pool_dim[q];
-  row = p.nf + p.nl + p.pool_row[q] + kk * dp;
-  ubase = p.pool_u[q];
-  return q;
+// out[r] = sum_i J[r, i] * x_i (- sub[r]), lanes over rows; x broadcast
+// in registers; float2 reads of J rows at stride NV (even)
+template <int NV>
+__device__ __forceinline__ void rows_dot(const float* J, const float* xb,
+                                         const float* sub, float* out, int ne,
+                                         int lane) {
+#pragma unroll 2
+  for (int r = lane; r < ne; r += 32) {
+    const float2* Jr = reinterpret_cast<const float2*>(J + r * NV);
+    float2 v = Jr[0];
+    float acc = v.x * xb[0];
+    acc = acc + v.y * xb[1];
+#pragma unroll
+    for (int m = 1; m < NV / 2; ++m) {
+      v = Jr[m];
+      acc = acc + v.x * xb[2 * m];
+      acc = acc + v.y * xb[2 * m + 1];
+    }
+    out[r] = sub ? acc - sub[r] : acc;
+  }
 }
 
-// penalty of a dof-friction or limit row r at z
-__device__ inline float row_S(const Params& p, const float* sm, const Layout& L,
-                              int r, float z) {
-  float Dr = sm[L.D + r];
-  if (r < p.nf) {
-    float fl = sm[L.fl + r];
-    bool quad = fabsf(Dr * z) <= fl;
-    return quad ? 0.5f * Dr * z * z
-                : fl * fabsf(z) - 0.5f * fl * fl * sm[L.R + r];
-  }
-  bool act = (sm[L.act + r] > 0.f) && (z < 0.f);
+// penalty of dof-friction row r (< nf) at z
+__device__ __forceinline__ float fric_S(const Params& p, const float* sm, int r,
+                                        float z) {
+  const float Dr = sm[p.off[O_FD] + r], fl = sm[p.off[O_FL] + r];
+  const bool quad = fabsf(Dr * z) <= fl;
+  return quad ? 0.5f * Dr * z * z
+              : fl * fabsf(z) - 0.5f * fl * fl * sm[p.off[O_FR] + r];
+}
+
+// penalty of limit row r (nf <= r < nf + nl) at z
+__device__ __forceinline__ float lim_S(const Params& p, const float* sm, int r,
+                                       float z) {
+  const float Dr = sm[p.off[O_FD] + r];
+  const bool act = (sm[p.off[O_LACT] + r - p.nf] > 0.f) && (z < 0.f);
   return act ? 0.5f * Dr * z * z : 0.f;
 }
 
-// cone penalty of contact k at rows z0 + alpha * dz
-__device__ inline float con_S(const Params& p, const float* sm, const Layout& L,
-                              int k, const float* z0, const float* dz,
-                              float alpha) {
-  int kk, dp, row, ub;
-  pool_of(p, k, kk, dp, row, ub);
-  float Rn = sm[L.Rn + k], mu = sm[L.mu + k];
-  float u0 = 0.f, tt = 0.f;
-  for (int d = 0; d < dp; ++d) {
-    float z = z0[row + d] + alpha * dz[row + d];
-    float u = -(z * sm[L.sc + k * 6 + d] * sm[L.mk + k * 6 + d]) / Rn;
-    if (d == 0) u0 = u; else tt += u * u;
+// cone penalty of contact k (first contact row rc, row r = nf + nl + rc,
+// dim dp) at z + alpha * jd, from the tables: no division
+__device__ __forceinline__ float con_S(const Params& p, const float* sm, int k,
+                                       int rc, int r, int dp, float alpha) {
+  const float* z = sm + p.off[O_Z] + r;
+  const float* jd = sm + p.off[O_JD] + r;
+  const float* cc = sm + p.off[O_CC] + rc;
+  float Rn = sm[p.off[O_RN] + k], mu = sm[p.off[O_MU] + k];
+  float imu = sm[p.off[O_IMU] + k];
+  float u0 = -((z[0] + alpha * jd[0]) * cc[0]);
+  float tt = 0.f;
+#pragma unroll
+  for (int d = 1; d < 6; ++d) {
+    if (d < dp) {
+      float u = -((z[d] + alpha * jd[d]) * cc[d]);
+      tt += u * u;
+    }
   }
   float t = sqrtf(tt + 1e-30f);
   bool bottom = t <= mu * u0;
   bool top = mu * t <= -u0;
   float usq = u0 * u0 + tt;
-  float al = (u0 + mu * t) / (1.f + mu * mu);
+  float al = (u0 + mu * t) * imu;
   float mid_d2 = usq - al * al * (1.f + mu * mu);
   float d2 = bottom ? 0.f : (top ? usq : mid_d2);
   return 0.5f * Rn * (usq - d2);
 }
 
-// total penalty S(z + alpha * dz), one warp, lanes over rows and contacts
-__device__ inline float warp_S(const Params& p, const float* sm, const Layout& L,
-                               float alpha, int lane) {
-  const float* z = sm + L.z;
-  const float* dz = sm + L.Jd;
-  int nfl = p.nf + p.nl;
-  float acc = 0.f;
-  for (int it = lane; it < nfl + p.ktot; it += 32) {
-    if (it < nfl) acc += row_S(p, sm, L, it, z[it] + alpha * dz[it]);
-    else acc += con_S(p, sm, L, it - nfl, z, dz, alpha);
-  }
-  return warp_sum(acc);
-}
-
-// forces f(z) and weights w(z) of every row; with want_u, also the
-// rank-1 cone rows U and their weights wU (friction contacts)
-__device__ void penalty_fw(const Params& p, float* sm, const Layout& L,
-                           bool want_u, int tid) {
-  const float* z = sm + L.z;
-  int nfl = p.nf + p.nl;
-  for (int r = tid; r < nfl; r += NTHREADS) {
-    float Dr = sm[L.D + r], zr = z[r];
+// Forces and weights at z, with the reference's arithmetic (penalty_fw):
+// f and w of the dof-friction and limit rows; f of the active contacts'
+// rows, and per active contact wk (its rows' weights are (wk * cSm) *
+// csc) and, with want_u, the rank-1 row weights wV0, wVn and
+// coefficients cn_d (in jd, at the contact's rows d >= 1).  An inactive
+// slot's f is 0 and is written only with the outputs.  Lanes over rows,
+// then over the active contacts (condim 1-6 by predication).
+__device__ __forceinline__ void penalty_fw(const Params& p, float* sm,
+                                           bool want_u, int nact, int lane) {
+  const float* z = sm + p.off[O_Z];
+  float* f = sm + p.off[O_F];
+  const int nfl = p.nf + p.nl;
+  for (int r = lane; r < nfl; r += 32) {
+    float Dr = sm[p.off[O_FD] + r], zr = z[r];
     float fr, wr;
     if (r < p.nf) {
-      float fl = sm[L.fl + r];
+      float fl = sm[p.off[O_FL] + r];
       float f_unc = -Dr * zr;
       bool quad = fabsf(f_unc) <= fl;
       fr = clampf_nan(f_unc, -fl, fl);
       wr = quad ? Dr : 0.f;
     } else {
-      bool act = (sm[L.act + r] > 0.f) && (zr < 0.f);
+      bool act = (sm[p.off[O_LACT] + r - p.nf] > 0.f) && (zr < 0.f);
       fr = act ? -Dr * zr : 0.f;
       wr = act ? Dr : 0.f;
     }
-    sm[L.f + r] = fr;
-    sm[L.w + r] = wr;
+    f[r] = fr;
+    sm[p.off[O_WFL] + r] = wr;
   }
-  for (int k = tid; k < p.ktot; k += NTHREADS) {
-    int kk, dp, row, ub;
-    int q = pool_of(p, k, kk, dp, row, ub);
-    float Rn = sm[L.Rn + k], mu = sm[L.mu + k], cac = sm[L.cac + k];
+  const int* act = reinterpret_cast<const int*>(sm + p.off[O_ACT]);
+  for (int i = lane; i < nact; i += 32) {
+    int k, dp, rc;
+    unpack_act(act[i], k, dp, rc);
+    const int r = nfl + rc;
+    const float* cSm = sm + p.off[O_CSM] + rc;
+    const float* cfm = sm + p.off[O_CFM] + rc;
+    float Rn = sm[p.off[O_RN] + k], mu = sm[p.off[O_MU] + k];
+    float cac = sm[p.off[O_CAC] + k];
     float u[6];
     float tt = 0.f;
-    for (int d = 0; d < dp; ++d) {
-      u[d] = -(z[row + d] * sm[L.sc + k * 6 + d] * sm[L.mk + k * 6 + d]) / Rn;
-      if (d > 0) tt += u[d] * u[d];
+#pragma unroll
+    for (int d = 0; d < 6; ++d) {
+      u[d] = 0.f;
+      if (d < dp) {
+        u[d] = -(z[r + d] * cSm[d]) / Rn;
+        if (d > 0) tt += u[d] * u[d];
+      }
     }
     float u0 = u[0];
     float t = sqrtf(tt + 1e-30f);
@@ -257,450 +278,819 @@ __device__ void penalty_fw(const Params& p, float* sm, const Layout& L,
     float phi0 = bottom ? u0 : (top ? 0.f : al);
     float mid_c = mu * al / t;
     float diag_c = bottom ? 1.f : (top ? 0.f : mid_c);
-    for (int d = 0; d < dp; ++d) {
-      float phi = phi0;
-      if (d > 0) {
+    f[r] = phi0 * cfm[0];
+#pragma unroll
+    for (int d = 1; d < 6; ++d) {
+      if (d < dp) {
         float tdir = u[d] / t;
-        phi = bottom ? u[d] : (top ? 0.f : mu * al * tdir);
+        float phi = bottom ? u[d] : (top ? 0.f : mu * al * tdir);
+        f[r + d] = phi * cfm[d];
       }
-      float sc = sm[L.sc + k * 6 + d], mk = sm[L.mk + k * 6 + d];
-      sm[L.f + row + d] = phi * sm[L.fsc + k * 6 + d] * mk;
-      sm[L.w + row + d] = (diag_c * cac / Rn) * sc * sc * mk;
     }
+    sm[p.off[O_WK] + k] = diag_c * cac / Rn;
     if (want_u && dp > 1) {
-      // U_e0 = (S e0)^T Jc, U_n = (S nhat)^T Jc, U_v = U_e0 + mu U_n
-      int Kp = p.pool_k[q];
-      float* Uv = sm + L.U + (ub + kk) * p.nv;
-      float* Ue = sm + L.U + (ub + Kp + kk) * p.nv;
-      float* Un = sm + L.U + (ub + 2 * Kp + kk) * p.nv;
-      const float* Jc = sm + L.J + row * p.nv;
-      float Sm0 = sm[L.sc + k * 6] * sm[L.mk + k * 6];
-      float cn[6];
-      for (int d = 1; d < dp; ++d)
-        cn[d] = (sm[L.sc + k * 6 + d] * sm[L.mk + k * 6 + d]) * (u[d] / t);
-      for (int i = 0; i < p.nv; ++i) {
-        float e0 = Sm0 * Jc[i];
-        float n = cn[1] * Jc[p.nv + i];
-        for (int d = 2; d < dp; ++d) n = n + cn[d] * Jc[d * p.nv + i];
-        Ue[i] = e0;
-        Un[i] = n;
-        Uv[i] = e0 + mu * n;
-      }
+      float* cn = sm + p.off[O_JD] + r;
+#pragma unroll
+      for (int d = 1; d < 6; ++d)
+        if (d < dp) cn[d] = cSm[d] * (u[d] / t);
       float is_mid = (middle ? 1.f : 0.f) * cac;
       float wVn = -is_mid * mid_c / Rn;
-      sm[L.wU + ub + kk] = is_mid / ((1.f + mu * mu) * Rn);
-      sm[L.wU + ub + Kp + kk] = wVn;
-      sm[L.wU + ub + 2 * Kp + kk] = wVn;
+      sm[p.off[O_WV0] + k] = is_mid / ((1.f + mu * mu) * Rn);
+      sm[p.off[O_WVN] + k] = wVn;
     }
   }
 }
 
-// out[i] = sum_r J[r, i] * v[r]: warps over columns, lanes over rows
-__device__ inline void rmatvec(const Params& p, const float* sm, const Layout& L,
-                               const float* v, float* out, int warp, int lane) {
-  for (int i = warp; i < p.nv; i += NWARPS) {
-    float acc = 0.f;
-    for (int r = lane; r < p.ne; r += 32) acc += sm[L.J + r * p.nv + i] * v[r];
-    acc = warp_sum(acc);
-    if (lane == 0) out[i] = acc;
+// lane i < NV: sum_r J[r, i] f[r] in row order over the dof-friction and
+// limit rows and the active contacts' rows (an inactive slot's f is 0)
+template <int NV>
+__device__ __forceinline__ float jtf(const Params& p, const float* sm, int nact,
+                                     int lane) {
+  const float* J = sm + p.off[O_J];
+  const float* f = sm + p.off[O_F];
+  const int* act = reinterpret_cast<const int*>(sm + p.off[O_ACT]);
+  const int col = lane < NV ? lane : 0;
+  const int nfl = p.nf + p.nl;
+  float acc = 0.f;
+#pragma unroll 4
+  for (int r = 0; r < nfl; ++r) acc += J[r * NV + col] * f[r];
+  for (int i = 0; i < nact; ++i) {
+    int k, dp, rc;
+    unpack_act(act[i], k, dp, rc);
+    const int r = nfl + rc;
+    for (int d = 0; d < dp; ++d) acc += J[(r + d) * NV + col] * f[r + d];
   }
+  return acc;
 }
 
-// out[r] = sum_i J[r, i] * x[i] (+ sub), threads over rows
-__device__ inline void matvec_rows(const Params& p, const float* sm,
-                                   const Layout& L, const float* x,
-                                   const float* sub, float* out, int tid) {
-  for (int r = tid; r < p.ne; r += NTHREADS) {
-    const float* Jr = sm + L.J + r * p.nv;
-    float acc = Jr[0] * x[0];
-    for (int i = 1; i < p.nv; ++i) acc = acc + Jr[i] * x[i];
-    out[r] = sub ? acc - sub[r] : acc;
-  }
-}
+// ---- Gram, "vpu": CUDA cores ------------------------------------------
+// Lane b < NG (NG + 1) / 2 owns the 3 x 3 block (I, J), I <= J, of the
+// NG x NG block upper triangle (NG = NV / 3); the other lanes repeat
+// block 0 and write nothing.  hj sums the J rows in row order, hu the
+// rank-1 rows contact by contact (v, e0, n); G = hj + hu, as the
+// reference sums them.
+template <int NV>
+__device__ __forceinline__ void gram_vpu(const Params& p, float* sm, int nact,
+                                         int lane, float* G) {
+  static_assert(NV % 3 == 0, "the vpu Gram tiles nv by 3");
+  constexpr int NG = NV / 3;
+  constexpr int NB = NG * (NG + 1) / 2;
+  static_assert(NB <= 32, "one block per lane");
+  int I = 0, rem = lane < NB ? lane : 0;
+  while (rem >= NG - I) { rem -= NG - I; ++I; }
+  const int i0 = 3 * I, j0 = 3 * (I + rem);
+  const float* J = sm + p.off[O_J];
+  float hj[3][3], hu[3][3];
+#pragma unroll
+  for (int m = 0; m < 3; ++m)
+#pragma unroll
+    for (int n = 0; n < 3; ++n) { hj[m][n] = 0.f; hu[m][n] = 0.f; }
 
-// in-place right-looking Cholesky of W (nv x nv, lower part used) by one
-// warp, lane = row; 1/sqrtf gives NaN on a negative pivot
-__device__ inline void warp_cholesky(float* W, int nv, int lane) {
-  for (int j = 0; j < nv; ++j) {
-    float pivot = 1.f / sqrtf(W[j * nv + j]);
-    __syncwarp();
-    float col = 0.f;
-    if (lane < nv && lane >= j) col = W[lane * nv + j] * pivot;
-    __syncwarp();
-    if (lane < nv && lane >= j) W[lane * nv + j] = col;
-    __syncwarp();
-    if (lane < nv && lane > j)
-      for (int k = j + 1; k <= lane; ++k) W[lane * nv + k] -= col * W[k * nv + j];
-    __syncwarp();
-  }
-}
-
-// H = M + J^T diag(w) J + U^T diag(wU) U + 1e-10 I on the CUDA cores:
-// threads over the upper-triangle pairs, each a float32 dot product over
-// the ne J rows, then over the nu rank-1 rows.  All arrays in shared
-// memory, row-major: J (ne, nv), U (nu, nv), M and H (nv, nv).
-__device__ void gram_vpu(const float* J, const float* w, const float* U,
-                         const float* wU, const float* M, float* H, int nv,
-                         int ne, int nu, int tid) {
-  const int npairs = nv * (nv + 1) / 2;
-  for (int pr = tid; pr < npairs; pr += NTHREADS) {
-    int i = 0, rem = pr;
-    while (rem >= nv - i) { rem -= nv - i; ++i; }
-    int j = i + rem;
-    float hj = 0.f;
-    for (int r = 0; r < ne; ++r) {
-      const float* Jr = J + r * nv;
-      hj += Jr[i] * w[r] * Jr[j];
+  const int nfl = p.nf + p.nl;
+  const int* act = reinterpret_cast<const int*>(sm + p.off[O_ACT]);
+#pragma unroll 4
+  for (int r = 0; r < nfl; ++r) {
+    const float wr = sm[p.off[O_WFL] + r];
+    const float* Jr = J + r * NV;
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      float wx = Jr[i0 + m] * wr;
+#pragma unroll
+      for (int n = 0; n < 3; ++n) hj[m][n] += wx * Jr[j0 + n];
     }
-    float hu = 0.f;
-    for (int u = 0; u < nu; ++u) {
-      const float* Ur = U + u * nv;
-      hu += Ur[i] * wU[u] * Ur[j];
+  }
+  for (int i = 0; i < nact; ++i) {
+    int k, dp, rc;
+    unpack_act(act[i], k, dp, rc);
+    const int r = nfl + rc;
+    const float* cSm = sm + p.off[O_CSM] + rc;
+    const float* csc = sm + p.off[O_CSC] + rc;
+    const float wk = sm[p.off[O_WK] + k];
+    float x[6][3], y[6][3];
+#pragma unroll
+    for (int d = 0; d < 6; ++d) {
+      if (d < dp) {
+        const float* Jr = J + (r + d) * NV;
+#pragma unroll
+        for (int m = 0; m < 3; ++m) { x[d][m] = Jr[i0 + m]; y[d][m] = Jr[j0 + m]; }
+        float wd = (wk * cSm[d]) * csc[d];
+        if (wd != 0.f) {
+#pragma unroll
+          for (int m = 0; m < 3; ++m) {
+            float wx = x[d][m] * wd;
+#pragma unroll
+            for (int n = 0; n < 3; ++n) hj[m][n] += wx * y[d][n];
+          }
+        }
+      }
     }
-    float h = (hj + hu) + M[i * nv + j];
-    if (i == j) h += 1e-10f;
-    H[i * nv + j] = h;
-    H[j * nv + i] = h;
+    if (dp < 2) continue;
+    const float wv0 = sm[p.off[O_WV0] + k], wvn = sm[p.off[O_WVN] + k];
+    if (wv0 == 0.f && wvn == 0.f) continue;
+    const float* cn = sm + p.off[O_JD] + r;
+    const float Sm0 = cSm[0], mu = sm[p.off[O_MU] + k];
+    float ex[3], ey[3], nx[3], ny[3];
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      ex[m] = Sm0 * x[0][m];
+      ey[m] = Sm0 * y[0][m];
+      nx[m] = cn[1] * x[1][m];
+      ny[m] = cn[1] * y[1][m];
+    }
+#pragma unroll
+    for (int d = 2; d < 6; ++d) {
+      if (d < dp) {
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+          nx[m] = nx[m] + cn[d] * x[d][m];
+          ny[m] = ny[m] + cn[d] * y[d][m];
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      const float vxm = ex[m] + mu * nx[m];
+      const float av = vxm * wv0, ae = ex[m] * wvn, an = nx[m] * wvn;
+#pragma unroll
+      for (int n = 0; n < 3; ++n) {
+        const float vyn = ey[n] + mu * ny[n];
+        hu[m][n] += av * vyn;
+        hu[m][n] += ae * ey[n];
+        hu[m][n] += an * ny[n];
+      }
+    }
+  }
+  __syncwarp();  // every lane is done with the coefficients in jd
+  if (lane < NB) {
+#pragma unroll
+    for (int m = 0; m < 3; ++m)
+#pragma unroll
+      for (int n = 0; n < 3; ++n) {
+        const int i = i0 + m, j = j0 + n;
+        if (i <= j) {
+          float g = hj[m][n] + hu[m][n];
+          G[i * NV + j] = g;
+          G[j * NV + i] = g;
+        }
+      }
   }
 }
 
-// One 8 x 8 output tile (rows i0.., columns j0..) of X^T diag(wx) X over
-// the n rows of X (n, nv), added to the warp's accumulators, 4 rows per
-// mma.sync.m8n8k4.f64.  Fragments (PTX ISA, mma.m8n8k4 .f64): lane l
-// holds A[l >> 2][l & 3], B[l & 3][l >> 2] and C[l >> 2][2 (l & 3) + e]
-// for e = 0, 1; here A[m][k] = X[r + k][i0 + m] and B[k][c] = wx[r + k]
-// X[r + k][j0 + c], zero past nv and past n.
-__device__ inline void mma_rows(const float* X, const float* wx, int n,
-                                int nv, int i0, int j0, int lane, double& c0,
-                                double& c1) {
+// ---- Gram, "mxu": FP64 tensor cores -------------------------------------
+// Lane (g, q) = (lane >> 2, lane & 3).  Per k-step of 4 rows, lane holds
+// x_t = X[row q][8 t + g] (0 past nv) and the row's weight w; A[m][k] =
+// X[k][8 ti + m] and B[k][n] = w[k] X[k][8 tj + n] (PTX mma.m8n8k4 .f64
+// fragments: lane l holds A[l >> 2][l & 3], B[l & 3][l >> 2] and
+// C[l >> 2][2 (l & 3) + e]).
+template <int NT>
+struct MxuAcc {
+  double c[NT * (NT + 1) / 2][2];
+};
+
+template <int NT>
+__device__ __forceinline__ void mxu_kstep(MxuAcc<NT>& acc, const float* x,
+                                          float w) {
+  double a[NT], b[NT];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    a[t] = (double)x[t];
+    b[t] = (double)w * a[t];
+  }
+  int tile = 0;
+#pragma unroll
+  for (int ti = 0; ti < NT; ++ti)
+#pragma unroll
+    for (int tj = ti; tj < NT; ++tj, ++tile)
+      asm volatile(
+          "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+          "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
+          : "+d"(acc.c[tile][0]), "+d"(acc.c[tile][1])
+          : "d"(a[ti]), "d"(b[tj]));
+}
+
+template <int NV>
+__device__ __forceinline__ void gram_mxu(const Params& p, float* sm, int nact,
+                                         int lane, float* G) {
+  constexpr int NT = (NV + 7) / 8;
   const int g = lane >> 2, q = lane & 3;
-  const int i = i0 + g, j = j0 + g;
-  for (int r0 = 0; r0 < n; r0 += 4) {
+  const float* J = sm + p.off[O_J];
+  MxuAcc<NT> acc;
+#pragma unroll
+  for (int t = 0; t < NT * (NT + 1) / 2; ++t) acc.c[t][0] = acc.c[t][1] = 0.0;
+  float x[NT];
+
+  const int nfl = p.nf + p.nl;
+  for (int r0 = 0; r0 < nfl; r0 += 4) {
     const int r = r0 + q;
-    const bool in = r < n;
-    double a = (in && i < nv) ? (double)X[r * nv + i] : 0.0;
-    double b = (in && j < nv) ? (double)wx[r] * (double)X[r * nv + j] : 0.0;
-    __syncwarp();
-    asm volatile(
-        "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
-        "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
-        : "+d"(c0), "+d"(c1)
-        : "d"(a), "d"(b));
+    const bool in = r < nfl;
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+      x[t] = (in && 8 * t + g < NV) ? J[r * NV + 8 * t + g] : 0.f;
+    const float w = in ? sm[p.off[O_WFL] + r] : 0.f;
+    if (__any_sync(FULL, w != 0.f)) mxu_kstep<NT>(acc, x, w);  // else adds 0
   }
+  const int* act = reinterpret_cast<const int*>(sm + p.off[O_ACT]);
+  for (int i = 0; i < nact; ++i) {
+    int k, dp, rc;
+    unpack_act(act[i], k, dp, rc);
+    const int r = nfl + rc;
+    const float* cSm = sm + p.off[O_CSM] + rc;
+    const float* csc = sm + p.off[O_CSC] + rc;
+    const float wk = sm[p.off[O_WK] + k];
+    for (int d0 = 0; d0 < dp; d0 += 4) {
+      const int d = d0 + q;
+      const bool in = d < dp;
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+        x[t] = (in && 8 * t + g < NV) ? J[(r + d) * NV + 8 * t + g] : 0.f;
+      mxu_kstep<NT>(acc, x, in ? (wk * cSm[d]) * csc[d] : 0.f);
+    }
+    if (dp < 2) continue;
+    const float wv0 = sm[p.off[O_WV0] + k], wvn = sm[p.off[O_WVN] + k];
+    if (wv0 == 0.f && wvn == 0.f) continue;
+    // the three rank-1 rows (v, e0, n) on q = 0, 1, 2; q = 3 is zero
+    const float* cn = sm + p.off[O_JD] + r;
+    const float Sm0 = cSm[0], mu = sm[p.off[O_MU] + k];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const int c = 8 * t + g;
+      float e = 0.f, n = 0.f;
+      if (c < NV) {
+        e = Sm0 * J[r * NV + c];
+        n = cn[1] * J[(r + 1) * NV + c];
+        for (int dd = 2; dd < dp; ++dd) n = n + cn[dd] * J[(r + dd) * NV + c];
+      }
+      const float v = e + mu * n;
+      x[t] = q == 0 ? v : (q == 1 ? e : (q == 2 ? n : 0.f));
+    }
+    mxu_kstep<NT>(acc, x, q == 0 ? wv0 : (q == 3 ? 0.f : wvn));
+  }
+  __syncwarp();  // every lane is done with the coefficients in jd
+  int tile = 0;
+#pragma unroll
+  for (int ti = 0; ti < NT; ++ti)
+#pragma unroll
+    for (int tj = ti; tj < NT; ++tj, ++tile)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 8 * ti + g, j = 8 * tj + 2 * q + e;
+        if (i < NV && j < NV && i <= j) {
+          float h = (float)acc.c[tile][e];
+          G[i * NV + j] = h;
+          G[j * NV + i] = h;
+        }
+      }
 }
 
-// The same H on the tensor cores (see "Gram modes" above): warps take the
-// 8 x 8 tiles on or above the diagonal in turn; each tile runs its J rows
-// then its rank-1 rows through one double accumulator, rounds to float32,
-// adds M (and 1e-10 on the diagonal) and writes (i, j) and (j, i) from the
-// lane that holds i <= j, so every entry has one writer.
-__device__ void gram_mxu(const float* J, const float* w, const float* U,
-                         const float* wU, const float* M, float* H, int nv,
-                         int ne, int nu, int tid) {
-  const int warp = tid >> 5, lane = tid & 31;
-  const int nt = (nv + 7) / 8;
-  const int ntiles = nt * (nt + 1) / 2;
-  for (int t = warp; t < ntiles; t += NWARPS) {
-    int ti = 0, rem = t;
-    while (rem >= nt - ti) { rem -= nt - ti; ++ti; }
-    const int tj = ti + rem;
-    double c[2] = {0.0, 0.0};
-    mma_rows(J, w, ne, nv, 8 * ti, 8 * tj, lane, c[0], c[1]);
-    mma_rows(U, wU, nu, nv, 8 * ti, 8 * tj, lane, c[0], c[1]);
-    const int i = 8 * ti + (lane >> 2);
-    for (int e = 0; e < 2; ++e) {
-      const int j = 8 * tj + 2 * (lane & 3) + e;
-      if (i < nv && j < nv && i <= j) {
-        float h = (float)c[e] + M[i * nv + j];
-        if (i == j) h += 1e-10f;
-        H[i * nv + j] = h;
-        H[j * nv + i] = h;
-      }
+// In-place right-looking Cholesky of the rows h (lane li holds row li,
+// columns 0..li used), with the reference's rsqrt pivot (lax.rsqrt;
+// torch.rsqrt in the plain version): NaN on a negative pivot.  Returns
+// the lane's own pivot rsqrt(W_ii) = 1/L_ii, which the triangular solves
+// multiply by.
+template <int NV>
+__device__ __forceinline__ float chol_rows(float* h, int li) {
+  float inv = 0.f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const float pivot = rsqrtf(__shfl_sync(FULL, h[j], j));
+    const float col = h[j] * pivot;
+    if (li == j) inv = pivot;
+    if (li >= j) h[j] = col;
+#pragma unroll
+    for (int k = j + 1; k < NV; ++k) {
+      const float ck = __shfl_sync(FULL, col, k);
+      if (li >= k) h[k] -= col * ck;
     }
   }
+  return inv;
 }
 
-template <int GRAM>
-__device__ inline void gram(const float* J, const float* w, const float* U,
-                            const float* wU, const float* M, float* H, int nv,
-                            int ne, int nu, int tid) {
-  if (GRAM == 0) gram_vpu(J, w, U, wU, M, H, nv, ne, nu, tid);
-  else gram_mxu(J, w, U, wU, M, H, nv, ne, nu, tid);
-}
+// per-phase cycles in 32 bits (clock() deltas wrap correctly; a phase
+// sums well under 2^32 cycles per solve), the total in 64
+#define STAMP(ph)                   \
+  if (KIND == KIND_PROFILE) {       \
+    __syncwarp();                   \
+    const unsigned t_ = clock();    \
+    cyc[ph] += t_ - t_prev;         \
+    t_prev = t_;                    \
+  }
 
-// GRAM: 0 = "vpu", 1 = "mxu"
-template <int GRAM>
-__global__ void __launch_bounds__(NTHREADS)
+// GRAM: 0 = "vpu", 1 = "mxu"; KIND: KIND_SOLVE, KIND_PROFILE, KIND_GRAM
+template <int NV, int GRAM, int KIND>
+__global__ void __launch_bounds__(32 * MAX_EPB, 3)
 newton_kernel(Params p, Inputs in) {
-  extern __shared__ float sm[];
-  const Layout L = make_layout(p);
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nv = p.nv, ne = p.ne, nv2 = nv * nv;
-  float* vec = sm + L.vec;
-  float* a = vec + V_A * MAX_NV;
-  float* qs = vec + V_QS * MAX_NV;
-  float* Mda = vec + V_MDA * MAX_NV;
-  float* grad = vec + V_GRAD * MAX_NV;
-  float* delta = vec + V_DELTA * MAX_NV;
-  float* Md = vec + V_MD * MAX_NV;
-  float* phis = sm + L.phis;
-  float* scal = phis + MAX_LADDER + 2;
+  static_assert(NV % 2 == 0 && NV <= 32, "a lane per dof, float2 J rows");
+  extern __shared__ __align__(16) float smem[];
+  unsigned cyc[NPHASE];
+#pragma unroll
+  for (int i = 0; i < NPHASE; ++i) cyc[i] = 0;
+  const long long t_start = clock64();
+  unsigned t_prev = clock();
 
-  // ---- stage this env's inputs in shared memory -----------------------
+  const int lane = threadIdx.x & 31, slot = threadIdx.x >> 5;
+  const int b = blockIdx.x * p.epb + slot;
+  if (b >= p.B) return;  // the ragged last block's spare warps
+  float* sm = smem + slot * p.env_floats;
+  const int ne = p.ne, K = p.K, nfl = p.nf + p.nl;
+  const int li = lane < NV ? lane : 0;  // lanes past nv repeat row 0
+
+  // ---- stage this env's inputs ----------------------------------------
+  float Mrow[NV];
+  float a, qs;
+  int nact = 0;
   {
-    const float* gJ = in.J + (size_t)b * ne * nv;
-    for (int i = tid; i < ne * nv; i += NTHREADS) sm[L.J + i] = gJ[i];
-    const float* gM = in.M + (size_t)b * nv2;
-    for (int i = tid; i < nv2; i += NTHREADS) sm[L.M + i] = gM[i];
-    size_t ro = (size_t)b * ne;
-    for (int r = tid; r < ne; r += NTHREADS) {
-      sm[L.aref + r] = in.aref[ro + r];
-      sm[L.D + r] = in.D[ro + r];
-      sm[L.R + r] = in.R[ro + r];
-      sm[L.fl + r] = in.floss[ro + r];
-      sm[L.act + r] = in.active[ro + r];
+    float* Js = sm + p.off[O_J];
+    const int n = ne * NV;
+    const float* gJ = in.J + (size_t)b * n;
+    if ((n & 3) == 0 && ((uintptr_t)gJ & 15) == 0) {
+      // 16-byte loads, 8 in flight per lane
+      const float4* s4 = reinterpret_cast<const float4*>(gJ);
+      float4* d4 = reinterpret_cast<float4*>(Js);
+      const int n4 = n / 4;
+      for (int i0 = lane; i0 < n4; i0 += 8 * 32) {
+        float4 v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (i0 + 32 * u < n4) v[u] = s4[i0 + 32 * u];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (i0 + 32 * u < n4) d4[i0 + 32 * u] = v[u];
+      }
+    } else {
+      for (int i = lane; i < n; i += 32) Js[i] = gJ[i];
     }
-    size_t co = (size_t)b * p.ktot;
-    for (int i = tid; i < p.ktot * 6; i += NTHREADS) {
-      int k = i / 6;
-      sm[L.sc + i] = in.scale[co * 6 + i];
-      sm[L.fsc + i] = in.fscale[co * 6 + i];
-      sm[L.mk + i] = in.maskd[co * 6 + i] * in.conact[co + k];
+    const size_t ro = (size_t)b * ne;
+#pragma unroll 4
+    for (int r = lane; r < ne; r += 32) sm[p.off[O_AREF] + r] = in.aref[ro + r];
+    for (int r = lane; r < nfl; r += 32) {
+      sm[p.off[O_FD] + r] = in.D[ro + r];
+      if (r < p.nf) {
+        sm[p.off[O_FL] + r] = in.floss[ro + r];
+        sm[p.off[O_FR] + r] = in.R[ro + r];
+      } else {
+        sm[p.off[O_LACT] + r - p.nf] = in.active[ro + r];
+      }
     }
-    for (int k = tid; k < p.ktot; k += NTHREADS) {
-      sm[L.Rn + k] = in.Rn[co + k];
-      sm[L.mu + k] = in.mu[co + k];
-      sm[L.cac + k] = in.conact[co + k];
+    const size_t co = (size_t)b * K;
+#pragma unroll 3
+    for (int i = lane; i < K * 6; i += 32) {
+      const int k = i / 6, d = i - 6 * k;
+      int q = 0;
+      while (q + 1 < p.npool && k >= p.pool_con[q + 1]) ++q;
+      const int dp = p.pool_dim[q];
+      if (d < dp) {
+        const int rc = p.pool_row[q] + (k - p.pool_con[q]) * dp + d;
+        const float sc = in.scale[co * 6 + i];
+        const float mk = in.maskd[co * 6 + i] * in.conact[co + k];
+        const float Sm = sc * mk;
+        sm[p.off[O_CC] + rc] = Sm / in.Rn[co + k];
+        sm[p.off[O_CFM] + rc] = in.fscale[co * 6 + i] * mk;
+        sm[p.off[O_CSM] + rc] = Sm;
+        sm[p.off[O_CSC] + rc] = sc;
+      }
     }
-    for (int i = tid; i < nv; i += NTHREADS) {
-      a[i] = in.warm[(size_t)b * nv + i];
-      qs[i] = in.qs[(size_t)b * nv + i];
+    for (int k = lane; k < K; k += 32) {
+      const float mu = in.mu[co + k];
+      sm[p.off[O_RN] + k] = in.Rn[co + k];
+      sm[p.off[O_MU] + k] = mu;
+      sm[p.off[O_IMU] + k] = 1.f / (1.f + mu * mu);
+      sm[p.off[O_CAC] + k] = in.conact[co + k];
     }
+    // the active contacts, in slot order
+    int* act = reinterpret_cast<int*>(sm + p.off[O_ACT]);
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      const int k = k0 + lane;
+      const bool on = k < K && in.conact[co + k] != 0.f;
+      const unsigned m = __ballot_sync(FULL, on);
+      if (on) {
+        int q = 0;
+        while (q + 1 < p.npool && k >= p.pool_con[q + 1]) ++q;
+        const int dp = p.pool_dim[q];
+        const int rc = p.pool_row[q] + (k - p.pool_con[q]) * dp;
+        act[nact + __popc(m & ((1u << lane) - 1u))] = k | (dp << 8) | (rc << 12);
+      }
+      nact += __popc(m);
+    }
+    const float* gM = in.M + (size_t)b * NV * NV + li * NV;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) Mrow[j] = gM[j];
+    a = in.warm[(size_t)b * NV + li];
+    qs = in.qs[(size_t)b * NV + li];
   }
-  __syncthreads();
+  __syncwarp();
+  STAMP(0)
 
+  const float* J = sm + p.off[O_J];
+  float* G = sm + p.off[O_JD];  // Gram, then factor: jd and f, 2 ne >= nv^2
+  float xb[NV];
   const int nlad = p.nladder + 1;  // rungs + the 0 candidate
+  const int iterations = KIND == KIND_GRAM ? 1 : p.iterations;
 
-  for (int iter = 0; iter < p.iterations; ++iter) {
-    // z = J a - aref
-    matvec_rows(p, sm, L, a, sm + L.aref, sm + L.z, tid);
-    __syncthreads();
-    penalty_fw(p, sm, L, true, tid);
-    for (int i = tid; i < nv; i += NTHREADS) {
-      float acc = 0.f;
-      for (int j = 0; j < nv; ++j) acc += sm[L.M + i * nv + j] * (a[j] - qs[j]);
-      Mda[i] = acc;
-    }
-    __syncthreads();
+  for (int iter = 0; iter < iterations; ++iter) {
+    // z = J a - aref; forces, weights, rank-1 coefficients
+#pragma unroll
+    for (int j = 0; j < NV; ++j) xb[j] = __shfl_sync(FULL, a, j);
+    rows_dot<NV>(J, xb, sm + p.off[O_AREF], sm + p.off[O_Z], ne, lane);
+    __syncwarp();
+    penalty_fw(p, sm, true, nact, lane);
+    __syncwarp();
+    STAMP(1)
+
     // grad = M (a - qs) - J^T f
-    rmatvec(p, sm, L, sm + L.f, grad, warp, lane);
-    // H = M + J^T diag(w) J + U^T diag(wU) U + 1e-10 I
-    gram<GRAM>(sm + L.J, sm + L.w, sm + L.U, sm + L.wU, sm + L.M, sm + L.H,
-               nv, ne, p.nu, tid);
-    __syncthreads();
-    if (warp == 0) {
-      for (int i = lane; i < nv; i += 32) grad[i] = Mda[i] - grad[i];
-      float* W = sm + L.L;
-      const float* H = sm + L.H;
-      for (int i = lane; i < nv2; i += 32) W[i] = H[i];
-      __syncwarp();
-      warp_cholesky(W, nv, lane);
-      if (!isfinite(W[nv2 - 1])) {
-        // Levenberg retry with 1e-3 * max diag
-        float md = H[0];
-        for (int i = 1; i < nv; ++i) {
-          float d = H[i * nv + i];
-          md = (d > md || isnan(d)) ? d : md;
-        }
-        float shift = 1e-3f * md;
-        __syncwarp();
-        for (int i = lane; i < nv2; i += 32)
-          W[i] = H[i] + ((i / nv == i % nv) ? shift : 0.f);
-        __syncwarp();
-        warp_cholesky(W, nv, lane);
-      }
-      // delta = -(L L^T)^{-1} grad, lane i holds row i
-      float y = lane < nv ? grad[lane] : 0.f;
-      for (int i = 0; i < nv; ++i) {
-        if (lane == i) y = y / W[i * nv + i];
-        float yi = __shfl_sync(FULL, y, i);
-        if (lane > i && lane < nv) y -= W[lane * nv + i] * yi;
-      }
-      for (int i = nv - 1; i >= 0; --i) {
-        if (lane == i) y = y / W[i * nv + i];
-        float xi = __shfl_sync(FULL, y, i);
-        if (lane < i) y -= W[i * nv + lane] * xi;
-      }
-      float dl = -y;
-      bool bad = (lane < nv) && !isfinite(dl);
-      if (__any_sync(FULL, bad)) dl = 0.f;
-      if (lane < nv) delta[lane] = dl;
-    }
-    __syncthreads();
-    // Jd = J delta, Md = M delta
-    matvec_rows(p, sm, L, delta, nullptr, sm + L.Jd, tid);
-    for (int i = tid; i < nv; i += NTHREADS) {
-      float acc = 0.f;
-      for (int j = 0; j < nv; ++j) acc += sm[L.M + i * nv + j] * delta[j];
-      Md[i] = acc;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      float qa = lane < nv ? delta[lane] * Md[lane] : 0.f;
-      float qb = lane < nv ? delta[lane] * Mda[lane] : 0.f;
-      qa = 0.5f * warp_sum(qa);
-      qb = warp_sum(qb);
-      if (lane == 0) { scal[S_QA] = qa; scal[S_QB] = qb; }
-    }
-    __syncthreads();
-    // line search: each warp evaluates whole ladder candidates
+    float Mda = 0.f;
     {
-      float qa = scal[S_QA], qb = scal[S_QB];
-      for (int c = warp; c < nlad; c += NWARPS) {
-        float al = p.ladder[c];
-        float S = warp_S(p, sm, L, al, lane);
-        if (lane == 0) {
-          float pk = al * qb + (al * al) * qa + S;
-          phis[c] = isnan(pk) ? INFINITY : pk;
-        }
-      }
+      const float dq = a - qs;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) Mda += Mrow[j] * __shfl_sync(FULL, dq, j);
     }
-    __syncthreads();
-    if (warp == 0) {
-      float qa = scal[S_QA], qb = scal[S_QB];
-      int best = 0;
-      float best_phi = phis[0];
-      for (int c = 1; c < nlad; ++c)
-        if (phis[c] < best_phi) { best_phi = phis[c]; best = c; }
-      float a_best = p.ladder[best];
-      int il = best < 1 ? 1 : (best > p.nladder - 1 ? p.nladder - 1 : best);
-      float a_lo = p.ladder[il - 1], a_mid = p.ladder[il], a_hi = p.ladder[il + 1];
-      float p_lo = phis[il - 1], p_mid = phis[il], p_hi = phis[il + 1];
-      float d_lo = (p_lo - p_mid) / fmaxf(a_lo - a_mid, 1e-30f);
-      float d_hi = (p_mid - p_hi) / (fabsf(a_mid - a_hi) > 0.f ? a_mid - a_hi : 1e-30f);
-      float curv = (d_lo - d_hi) / fmaxf(a_lo - a_hi, 1e-30f);
+    const float grad = Mda - jtf<NV>(p, sm, nact, lane);
+    STAMP(2)
+
+    // H = (J^T diag(w) J + U^T diag(wU) U) + M + 1e-10 I, lane li: row li
+    if (GRAM == 0) gram_vpu<NV>(p, sm, nact, lane, G);
+    else gram_mxu<NV>(p, sm, nact, lane, G);
+    __syncwarp();
+    float h[NV];
+    float hd = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      h[j] = G[li * NV + j] + Mrow[j];
+      if (j == li) { h[j] += 1e-10f; hd = h[j]; }
+    }
+    if (KIND == KIND_GRAM) {
+      if (lane < NV) {
+        float* out = in.H + (size_t)b * NV * NV + lane * NV;
+#pragma unroll
+        for (int j = 0; j < NV; ++j) out[j] = h[j];
+      }
+      return;
+    }
+    STAMP(3)
+
+    // Cholesky, with the Levenberg retry when the first one fails
+    float inv = chol_rows<NV>(h, li);
+    if (!isfinite(__shfl_sync(FULL, h[NV - 1], NV - 1))) {
+      float md = hd;  // max of the diagonal; NaN if any entry is NaN
+      for (int o = 16; o > 0; o >>= 1) {
+        const float other = __shfl_xor_sync(FULL, md, o);
+        md = (other > md || isnan(other)) ? other : md;
+      }
+      const float shift = 1e-3f * md;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        h[j] = G[li * NV + j] + Mrow[j];
+        if (j == li) { h[j] += 1e-10f; h[j] += shift; }
+      }
+      inv = chol_rows<NV>(h, li);
+    }
+    // delta = -(L L^T)^{-1} grad: forward in registers, back through a
+    // transposed read of L in shared memory; 1/L_ii is the pivot
+    float y = lane < NV ? grad : 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (lane == i) y = y * inv;
+      const float yi = __shfl_sync(FULL, y, i);
+      if (lane > i && lane < NV) y -= h[i] * yi;
+    }
+    __syncwarp();
+    if (lane < NV) {
+#pragma unroll
+      for (int j = 0; j < NV; ++j) G[lane * NV + j] = h[j];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = NV - 1; i >= 0; --i) {
+      if (lane == i) y = y * inv;
+      const float xi = __shfl_sync(FULL, y, i);
+      if (lane < i) y -= G[i * NV + lane] * xi;
+    }
+    float delta = -y;
+    const bool bad = (lane < NV) && !isfinite(delta);
+    if (__any_sync(FULL, bad) || lane >= NV) delta = 0.f;
+    __syncwarp();
+    STAMP(4)
+
+    // Jd = J delta, Md = M delta; qa = 1/2 d.Md, qb = d.Mda
+#pragma unroll
+    for (int j = 0; j < NV; ++j) xb[j] = __shfl_sync(FULL, delta, j);
+    rows_dot<NV>(J, xb, nullptr, sm + p.off[O_JD], ne, lane);
+    float Md = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) Md += Mrow[j] * xb[j];
+    const float qa = 0.5f * warp_sum(lane < NV ? delta * Md : 0.f);
+    const float qb = warp_sum(lane < NV ? delta * Mda : 0.f);
+    __syncwarp();
+    STAMP(5)
+
+    // ladder: candidate c = lane (lanes past the ladder repeat the 0)
+    float phi;
+    {
+      const float al = p.ladder[lane < nlad ? lane : p.nladder];
+      const float* z = sm + p.off[O_Z];
+      const float* jd = sm + p.off[O_JD];
+      const int* act = reinterpret_cast<const int*>(sm + p.off[O_ACT]);
+      float S = 0.f;
+#pragma unroll 4
+      for (int r = 0; r < p.nf; ++r) S += fric_S(p, sm, r, z[r] + al * jd[r]);
+#pragma unroll 4
+      for (int r = p.nf; r < nfl; ++r) S += lim_S(p, sm, r, z[r] + al * jd[r]);
+      for (int i = 0; i < nact; ++i) {
+        int k, dp, rc;
+        unpack_act(act[i], k, dp, rc);
+        S += con_S(p, sm, k, rc, nfl + rc, dp, al);
+      }
+      const float pk = al * qb + (al * al) * qa + S;
+      phi = (lane < nlad && !isnan(pk)) ? pk : INFINITY;
+    }
+    STAMP(6)
+
+    // first minimum over the candidates, then the parabolic vertex
+    float best_phi = phi;
+    int best = lane < nlad ? lane : 32;
+    for (int o = 16; o > 0; o >>= 1) {
+      const float op = __shfl_xor_sync(FULL, best_phi, o);
+      const int oi = __shfl_xor_sync(FULL, best, o);
+      if (op < best_phi || (op == best_phi && oi < best)) { best_phi = op; best = oi; }
+    }
+    float alpha;
+    {
+      const float a_best = p.ladder[best];
+      const int il = best < 1 ? 1 : (best > p.nladder - 1 ? p.nladder - 1 : best);
+      const float a_lo = p.ladder[il - 1], a_mid = p.ladder[il], a_hi = p.ladder[il + 1];
+      const float p_lo = __shfl_sync(FULL, phi, il - 1);
+      const float p_mid = __shfl_sync(FULL, phi, il);
+      const float p_hi = __shfl_sync(FULL, phi, il + 1);
+      const float d_lo = (p_lo - p_mid) / fmaxf(a_lo - a_mid, 1e-30f);
+      const float d_hi = (p_mid - p_hi) / (fabsf(a_mid - a_hi) > 0.f ? a_mid - a_hi : 1e-30f);
+      const float curv = (d_lo - d_hi) / fmaxf(a_lo - a_hi, 1e-30f);
       float vertex = 0.5f * (a_lo + a_mid) - 0.5f * d_lo / (curv > 1e-30f ? curv : 1e30f);
       vertex = clampf_nan(vertex, 0.f, 4.f);
-      float Sv = warp_S(p, sm, L, vertex, lane);
-      if (lane == 0) {
-        float phi_v = vertex * qb + vertex * vertex * qa + Sv;
-        scal[S_ALPHA] = phi_v < best_phi ? vertex : a_best;
+      // S(vertex): lanes over rows, then over the active contacts
+      const float* z = sm + p.off[O_Z];
+      const float* jd = sm + p.off[O_JD];
+      const int* act = reinterpret_cast<const int*>(sm + p.off[O_ACT]);
+      float Sv = 0.f;
+      for (int r = lane; r < nfl; r += 32)
+        Sv += r < p.nf ? fric_S(p, sm, r, z[r] + vertex * jd[r])
+                       : lim_S(p, sm, r, z[r] + vertex * jd[r]);
+      for (int i = lane; i < nact; i += 32) {
+        int k, dp, rc;
+        unpack_act(act[i], k, dp, rc);
+        Sv += con_S(p, sm, k, rc, nfl + rc, dp, vertex);
       }
+      Sv = warp_sum(Sv);
+      const float phi_v = vertex * qb + vertex * vertex * qa + Sv;
+      alpha = phi_v < best_phi ? vertex : a_best;
     }
-    __syncthreads();
-    for (int i = tid; i < nv; i += NTHREADS) a[i] = a[i] + scal[S_ALPHA] * delta[i];
-    __syncthreads();
+    STAMP(7)
+
+    a = a + alpha * delta;
+    __syncwarp();
+    STAMP(8)
   }
 
   // final forces at the solution
-  matvec_rows(p, sm, L, a, sm + L.aref, sm + L.z, tid);
-  __syncthreads();
-  penalty_fw(p, sm, L, false, tid);
-  __syncthreads();
-  rmatvec(p, sm, L, sm + L.f, Md, warp, lane);
-  __syncthreads();
-  for (int r = tid; r < ne; r += NTHREADS) in.f[(size_t)b * ne + r] = sm[L.f + r];
-  for (int i = tid; i < nv; i += NTHREADS) {
-    in.qacc[(size_t)b * nv + i] = a[i];
-    in.qfrc[(size_t)b * nv + i] = Md[i];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) xb[j] = __shfl_sync(FULL, a, j);
+  rows_dot<NV>(J, xb, sm + p.off[O_AREF], sm + p.off[O_Z], ne, lane);
+  __syncwarp();
+  penalty_fw(p, sm, false, nact, lane);
+  __syncwarp();
+  const float qfrc = jtf<NV>(p, sm, nact, lane);
+  // f: the rows of inactive slots are 0
+  const float* f = sm + p.off[O_F];
+  for (int r = lane; r < ne; r += 32) {
+    float fr = f[r];
+    if (r >= nfl) {
+      const int rc = r - nfl;
+      int q = 0;
+      while (q + 1 < p.npool && rc >= p.pool_row[q + 1]) ++q;
+      const int k = p.pool_con[q] + (rc - p.pool_row[q]) / p.pool_dim[q];
+      if (sm[p.off[O_CAC] + k] == 0.f) fr = 0.f;
+    }
+    in.f[(size_t)b * ne + r] = fr;
+  }
+  if (lane < NV) {
+    in.qacc[(size_t)b * NV + lane] = a;
+    in.qfrc[(size_t)b * NV + lane] = qfrc;
+  }
+  if (KIND == KIND_PROFILE && lane == 0) {
+    long long* out = in.prof + (size_t)b * (NPHASE + 1);
+#pragma unroll
+    for (int i = 0; i < NPHASE; ++i) out[i] = (long long)cyc[i];
+    out[NPHASE] = clock64() - t_start;
   }
 }
 
-// Plain C entry point (bound with ctypes).  pool_k, pool_dim and ladder
-// are host arrays; every other pointer is device memory, batch-first and
-// contiguous float32.  gram_mode: 0 = "vpu", 1 = "mxu".  Launches on
-// `stream` and returns cudaGetLastError().
-extern "C" int newton_solve_f32(
-    const float* M, const float* qs, const float* warm, const float* J,
-    const float* aref, const float* D, const float* R, const float* floss,
-    const float* active, const float* scale, const float* fscale,
-    const float* maskd, const float* conact, const float* Rn, const float* mu,
-    float* qacc, float* f, float* qfrc, int B, int nv, int nf, int nl,
-    int npool, const int* pool_k, const int* pool_dim, int iterations,
-    const float* ladder, int nladder, int gram_mode, void* stream) {
-  if (B <= 0) return 0;
-  if (nv < 1 || nv > MAX_NV || npool < 1 || npool > MAX_POOLS ||
-      nladder < 2 || nladder > MAX_LADDER || gram_mode < 0 || gram_mode > 1)
+typedef void (*kernel_fn)(Params, Inputs);
+
+// The kernel for (nv, gram_mode, kind); nullptr for a width that is not
+// instantiated: only nv = 18 (Go1, Go2) is.
+static kernel_fn pick(int nv, int gram_mode, int kind) {
+  if (nv != 18 || gram_mode < 0 || gram_mode > 1 || kind < 0 || kind > 2)
+    return nullptr;
+  if (gram_mode == 0) {
+    if (kind == KIND_SOLVE) return newton_kernel<18, 0, KIND_SOLVE>;
+    if (kind == KIND_PROFILE) return newton_kernel<18, 0, KIND_PROFILE>;
+    return newton_kernel<18, 0, KIND_GRAM>;
+  }
+  if (kind == KIND_SOLVE) return newton_kernel<18, 1, KIND_SOLVE>;
+  if (kind == KIND_PROFILE) return newton_kernel<18, 1, KIND_PROFILE>;
+  return newton_kernel<18, 1, KIND_GRAM>;
+}
+
+// The offsets (floats) of one env's arrays in the order of the O_* enum,
+// and the floats per env, a multiple of 4 (16 bytes) so that every env's
+// J starts 16-byte aligned.
+static void env_layout(Params& p, int nv, int ncr) {
+  const int nfl = p.nf + p.nl, ne = p.ne, K = p.K;
+  const int size[NOFF] = {ne * nv, ne, ne, ne, ne, nfl, nfl, p.nf, p.nf,
+                          p.nl, ncr, ncr, ncr, ncr, K, K, K, K, K, K, K, K};
+  int o = 0;
+  for (int i = 0; i < NOFF; ++i) {
+    p.off[i] = o;
+    o += size[i];
+  }
+  p.env_floats = (o + 3) & ~3;
+}
+
+// Envs per block of the solve kernel of `gram_mode` (the profile and Gram
+// entries launch the same blocks): the most envs resident per SM that
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor gives for blocks of 1 to
+// MAX_EPB envs, the larger block on a tie.  *blocks_per_sm is the
+// resident blocks at that size.
+static int plan_block(Params& p, int nv, int gram_mode, int* blocks_per_sm) {
+  kernel_fn kernel = pick(nv, gram_mode, KIND_SOLVE);
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e != cudaSuccess) return (int)e;
+  const size_t env_bytes = (size_t)p.env_floats * sizeof(float);
+  int best = 0, best_envs = 0, best_blocks = 0;
+  for (int epb = MAX_EPB; epb >= 1; --epb) {
+    const size_t smem = epb * env_bytes;
+    if (smem > (size_t)optin) continue;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    int blocks = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        32 * epb, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (blocks * epb > best_envs) {
+      best = epb;
+      best_envs = blocks * epb;
+      best_blocks = blocks;
+    }
+  }
+  if (!best) return (int)cudaErrorInvalidValue;  // no block holds one env
+  p.epb = best;
+  *blocks_per_sm = best_blocks;
+  return 0;
+}
+
+// The layout part of a launch's Params: the pools, the per-env shared
+// layout and the envs per block.  cudaErrorInvalidValue for a layout the
+// kernel cannot hold: 1 to MAX_POOLS pools of condim 1-6, fewer than 256
+// slots and 2^19 contact rows (the active list packs them), 2 ne >= nv^2
+// (jd and f hold the Gram).
+static int make_params(Params& p, int nv, int nf, int nl, int npool,
+                       const int* pool_k, const int* pool_dim, int gram_mode,
+                       int* blocks_per_sm) {
+  if (!pick(nv, gram_mode, KIND_SOLVE) || npool < 1 || npool > MAX_POOLS ||
+      nf < 0 || nl < 0)
     return (int)cudaErrorInvalidValue;
-  Params p;
-  p.B = B; p.nv = nv; p.nf = nf; p.nl = nl; p.npool = npool;
-  p.iterations = iterations; p.nladder = nladder;
-  int row = 0, con = 0, u = 0;
+  p.nf = nf; p.nl = nl; p.npool = npool;
+  int row = 0, con = 0;
   for (int q = 0; q < npool; ++q) {
-    if (pool_dim[q] < 1 || pool_dim[q] > 6) return (int)cudaErrorInvalidValue;
+    if (pool_dim[q] < 1 || pool_dim[q] > 6 || pool_k[q] < 0)
+      return (int)cudaErrorInvalidValue;
     p.pool_k[q] = pool_k[q];
     p.pool_dim[q] = pool_dim[q];
     p.pool_row[q] = row;
     p.pool_con[q] = con;
-    p.pool_u[q] = u;
     row += pool_k[q] * pool_dim[q];
     con += pool_k[q];
-    if (pool_dim[q] > 1) u += 3 * pool_k[q];
   }
   p.ne = nf + nl + row;
-  p.ktot = con;
-  p.nu = u;
+  p.K = con;
+  if (con >= 256 || row >= (1 << 19) || 2 * p.ne < nv * nv)
+    return (int)cudaErrorInvalidValue;
+  env_layout(p, nv, row);
+  return plan_block(p, nv, gram_mode, blocks_per_sm);
+}
+
+static int launch(int kind, const float* const* x, float* qacc, float* f,
+                  float* qfrc, int B, int nv, int nf, int nl, int npool,
+                  const int* pool_k, const int* pool_dim, int iterations,
+                  const float* ladder, int nladder, int gram_mode,
+                  void* stream, long long* prof, float* H) {
+  kernel_fn kernel = pick(nv, gram_mode, kind);
+  if (!kernel || nladder < 2 || nladder > MAX_LADDER || iterations < 0)
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0) return 0;
+  Params p;
+  int blocks_per_sm = 0;
+  int err = make_params(p, nv, nf, nl, npool, pool_k, pool_dim, gram_mode,
+                        &blocks_per_sm);
+  if (err) return err;
+  p.B = B;
+  p.iterations = iterations;
+  p.nladder = nladder;
   for (int c = 0; c < nladder; ++c) p.ladder[c] = ladder[c];
   p.ladder[nladder] = 0.f;
-  Layout L = make_layout(p);
-  size_t smem = (size_t)L.total * sizeof(float);
-  void (*kernel)(Params, Inputs) = newton_kernel<0>;
-  if (gram_mode == 1) kernel = newton_kernel<1>;
+  const size_t smem = (size_t)p.epb * p.env_floats * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  Inputs in{M, qs, warm, J, aref, D, R, floss, active, scale, fscale, maskd,
-            conact, Rn, mu, qacc, f, qfrc};
-  kernel<<<B, NTHREADS, smem, (cudaStream_t)stream>>>(p, in);
+  Inputs in{x[0], x[1], x[2], x[3], x[4], x[5], x[6], x[7], x[8], x[9],
+            x[10], x[11], x[12], x[13], x[14], qacc, f, qfrc, prof, H};
+  const int blocks = (B + p.epb - 1) / p.epb;
+  kernel<<<blocks, 32 * p.epb, smem, (cudaStream_t)stream>>>(p, in);
   return (int)cudaGetLastError();
 }
 
-// H of the solve's Gram alone, for a batch: one block per env stages J,
-// w, U, wU and M in shared memory, calls the same gram<GRAM> device
-// function as the solve and writes H.  Off the main path: it lets a test
-// hold each mode's Gram against a float64 reference, apart from the line
-// search.  J (B, ne, nv), w (B, ne), U (B, nu, nv), wU (B, nu), M and H
-// (B, nv, nv), device memory, contiguous float32.
-template <int GRAM>
-__global__ void __launch_bounds__(NTHREADS)
-gram_kernel(const float* J, const float* w, const float* U, const float* wU,
-            const float* M, float* H, int nv, int ne, int nu) {
-  extern __shared__ float sm[];
-  const int b = blockIdx.x, tid = threadIdx.x, nv2 = nv * nv;
-  float* sJ = sm;
-  float* sw = sJ + ne * nv;
-  float* sU = sw + ne;
-  float* swU = sU + nu * nv;
-  float* sM = swU + nu;
-  float* sH = sM + nv2;
-  for (int i = tid; i < ne * nv; i += NTHREADS) sJ[i] = J[(size_t)b * ne * nv + i];
-  for (int i = tid; i < ne; i += NTHREADS) sw[i] = w[(size_t)b * ne + i];
-  for (int i = tid; i < nu * nv; i += NTHREADS) sU[i] = U[(size_t)b * nu * nv + i];
-  for (int i = tid; i < nu; i += NTHREADS) swU[i] = wU[(size_t)b * nu + i];
-  for (int i = tid; i < nv2; i += NTHREADS) sM[i] = M[(size_t)b * nv2 + i];
-  __syncthreads();
-  gram<GRAM>(sJ, sw, sU, swU, sM, sH, nv, ne, nu, tid);
-  __syncthreads();
-  for (int i = tid; i < nv2; i += NTHREADS) H[(size_t)b * nv2 + i] = sH[i];
+// Plain C entry points (bound with ctypes).  pool_k, pool_dim and ladder
+// are host arrays; every other pointer is device memory, batch-first and
+// contiguous float32: M, qs, warm, J, aref, D, R, floss, active, scale,
+// fscale, maskd, conact, Rn, mu (ops/newton.py's order).  gram_mode: 0 =
+// "vpu", 1 = "mxu".  Each launches on `stream` and returns
+// cudaGetLastError(), or cudaErrorInvalidValue for an nv other than 18 or
+// a layout make_params refuses.
+#define SOLVE_ARGS                                                           \
+  const float *M, const float *qs, const float *warm, const float *J,        \
+      const float *aref, const float *D, const float *R, const float *floss, \
+      const float *active, const float *scale, const float *fscale,          \
+      const float *maskd, const float *conact, const float *Rn,              \
+      const float *mu
+#define SOLVE_PTRS                                                          \
+  {M, qs, warm, J, aref, D, R, floss, active, scale, fscale, maskd, conact, \
+   Rn, mu}
+
+extern "C" int newton_solve_f32(SOLVE_ARGS, float* qacc, float* f, float* qfrc,
+                                int B, int nv, int nf, int nl, int npool,
+                                const int* pool_k, const int* pool_dim,
+                                int iterations, const float* ladder,
+                                int nladder, int gram_mode, void* stream) {
+  const float* x[15] = SOLVE_PTRS;
+  return launch(KIND_SOLVE, x, qacc, f, qfrc, B, nv, nf, nl, npool, pool_k,
+                pool_dim, iterations, ladder, nladder, gram_mode, stream,
+                nullptr, nullptr);
 }
 
-extern "C" int newton_gram_f32(const float* J, const float* w, const float* U,
-                               const float* wU, const float* M, float* H,
-                               int B, int nv, int ne, int nu, int gram_mode,
-                               void* stream) {
-  if (B <= 0) return 0;
-  if (nv < 1 || nv > MAX_NV || ne < 0 || nu < 0 || gram_mode < 0 ||
-      gram_mode > 1)
-    return (int)cudaErrorInvalidValue;
-  size_t smem = (size_t)((ne + nu) * (nv + 1) + 2 * nv * nv) * sizeof(float);
-  void (*kernel)(const float*, const float*, const float*, const float*,
-                 const float*, float*, int, int, int) = gram_kernel<0>;
-  if (gram_mode == 1) kernel = gram_kernel<1>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The same solve with SM clock stamps at the phase boundaries (after a
+// __syncwarp): prof (B, NPHASE + 1) int64, per env the cycles of each
+// phase summed over the iterations, then the whole solve.  Off the main
+// path.
+extern "C" int newton_profile_f32(SOLVE_ARGS, float* qacc, float* f,
+                                  float* qfrc, int B, int nv, int nf, int nl,
+                                  int npool, const int* pool_k,
+                                  const int* pool_dim, int iterations,
+                                  const float* ladder, int nladder,
+                                  int gram_mode, void* stream,
+                                  long long* prof) {
+  if (!prof) return (int)cudaErrorInvalidValue;
+  const float* x[15] = SOLVE_PTRS;
+  return launch(KIND_PROFILE, x, qacc, f, qfrc, B, nv, nf, nl, npool, pool_k,
+                pool_dim, iterations, ladder, nladder, gram_mode, stream,
+                prof, nullptr);
+}
+
+// H of the first iteration (at the warm start) alone, through the same
+// staging, penalty and Gram device code as the solve: H (B, nv, nv).  Off
+// the main path: it lets a test hold each mode's Gram against a float64
+// reference, apart from the line search.
+extern "C" int newton_gram_f32(SOLVE_ARGS, float* H, int B, int nv, int nf,
+                               int nl, int npool, const int* pool_k,
+                               const int* pool_dim, const float* ladder,
+                               int nladder, int gram_mode, void* stream) {
+  const float* x[15] = SOLVE_PTRS;
+  return launch(KIND_GRAM, x, nullptr, nullptr, nullptr, B, nv, nf, nl, npool,
+                pool_k, pool_dim, 1, ladder, nladder, gram_mode, stream,
+                nullptr, H);
+}
+
+// The solve kernel's launch plan and resources for a layout, as
+// make_params computes them: out = {envs per block, bytes of shared
+// memory per env, resident blocks per SM, registers per thread, local
+// (spill) bytes per thread}.
+extern "C" int newton_resources(int nv, int gram_mode, int nf, int nl,
+                                int npool, const int* pool_k,
+                                const int* pool_dim, int* out) {
+  Params p;
+  int blocks = 0;
+  int err = make_params(p, nv, nf, nl, npool, pool_k, pool_dim, gram_mode,
+                        &blocks);
+  if (err) return err;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, pick(nv, gram_mode, KIND_SOLVE));
   if (e != cudaSuccess) return (int)e;
-  kernel<<<B, NTHREADS, smem, (cudaStream_t)stream>>>(J, w, U, wU, M, H, nv,
-                                                       ne, nu);
-  return (int)cudaGetLastError();
+  out[0] = p.epb;
+  out[1] = p.env_floats * (int)sizeof(float);
+  out[2] = blocks;
+  out[3] = attr.numRegs;
+  out[4] = (int)attr.localSizeBytes;
+  return 0;
 }

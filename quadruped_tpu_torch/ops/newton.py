@@ -21,6 +21,13 @@ package and which the card's smoke run holds the kernel against.
 Two contact layouts, as in the reference: uniform slots of 6 rows
 (pool_dims None) and condim row pools (pool_dims ((K_p, dim_p), ...)),
 each pool contributing K_p slots of dim_p compact rows.
+
+The kernel is instantiated for nv = 18 only (KERNEL_NV); a launch at
+another width raises ValueError before anything is built.  Beside the
+solve, three entries off the main path: `gram` (the first iteration's H
+alone), `newton_profile` (the solve with per-phase cycle stamps) and
+`kernel_resources` (the kernel's launch plan, registers, spills and
+resident envs per SM).
 """
 
 from __future__ import annotations
@@ -268,6 +275,26 @@ def newton_core_torch(
     return a, f, _matvec(J.transpose(1, 2), f)
 
 
+KERNEL_NV = (18,)          # widths the kernel is instantiated for (Go1, Go2)
+
+
+def _check_width(nv: int) -> None:
+    """Refuse, before any build or launch, a width the kernel is not
+    instantiated for (the plain version takes any)."""
+    if nv not in KERNEL_NV:
+        raise ValueError(f"the Newton kernel is instantiated for nv in "
+                         f"{KERNEL_NV}, not {nv}")
+
+
+def _pool_arrays(K, pool_dims):
+    """(npool, K_p per pool, dim_p per pool) as the C entries take them."""
+    pools = pool_dims if pool_dims is not None else ((K, 6),)
+    return (len(pools), (ctypes.c_int * len(pools))(*[int(Kp) for Kp, _dp in pools]),
+            (ctypes.c_int * len(pools))(*[int(dp) for _Kp, dp in pools]))
+
+
+# ---- the kernel's entry points ---------------------------------------------
+
 def _lib():
     """The kernels' library, built and loaded at first use, with the C
     entry points' argument types declared (without them ctypes would pass
@@ -275,16 +302,17 @@ def _lib():
     lib = load("newton")
     if lib.newton_solve_f32.argtypes is None:
         pi = ctypes.POINTER(ctypes.c_int)
-        lib.newton_solve_f32.argtypes = (
-            [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5
-            + [pi, pi, ctypes.c_int, ctypes.POINTER(ctypes.c_float),
-               ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        )
-        lib.newton_solve_f32.restype = ctypes.c_int
-        lib.newton_gram_f32.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        )
-        lib.newton_gram_f32.restype = ctypes.c_int
+        pf = ctypes.POINTER(ctypes.c_float)
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        layout = [i] * 5 + [pi, pi]           # B, nv, nf, nl, npool, pools
+        solve = [vp] * 18 + layout + [i, pf, i, i, vp]
+        lib.newton_solve_f32.argtypes = solve
+        lib.newton_profile_f32.argtypes = solve + [vp]
+        lib.newton_gram_f32.argtypes = [vp] * 16 + layout + [pf, i, i, vp]
+        lib.newton_resources.argtypes = [i] * 5 + [pi, pi, pi]
+        for fn in (lib.newton_solve_f32, lib.newton_profile_f32,
+                   lib.newton_gram_f32, lib.newton_resources):
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -343,6 +371,39 @@ def _check(args, nf, nl, pool_dims):
     return B, nv, ne, K
 
 
+def _launch(entry, args, nf, nl, pool_dims, mode, *, iterations=None, out=None,
+            extra=()):
+    """Launch one of the kernel's C entry points on CUDA tensors `args`
+    (checked); `out` are the entry's output tensors, `iterations` None
+    for the Gram entry.  Raises on a refused launch."""
+    M = args[0]
+    B, nv, ne, K = _check(args, nf, nl, pool_dims)
+    if M.device.type != "cuda":
+        raise ValueError(f"the Newton kernel runs on CUDA tensors, not {M.device}")
+    _check_width(nv)
+    if B == 0:
+        return
+    npool, pool_k, pool_dim = _pool_arrays(K, pool_dims)
+    ladder = (ctypes.c_float * len(_LS_ALPHAS))(*_LS_ALPHAS)
+    steps = () if iterations is None else (iterations,)
+    with torch.cuda.device(M.device):
+        stream = torch.cuda.current_stream(M.device).cuda_stream
+        err = getattr(_lib(), entry)(
+            *[x.data_ptr() for x in args], *[o.data_ptr() for o in out],
+            B, nv, nf, nl, npool, pool_k, pool_dim, *steps, ladder,
+            len(_LS_ALPHAS), GRAM_MODES.index(mode), stream, *extra,
+        )
+    if err != 0:
+        raise RuntimeError(f"newton kernel ({entry}) launch failed: cudaError {err}")
+
+
+def _outputs(args):
+    M, J = args[0], args[3]
+    B, nv, ne = M.shape[0], M.shape[-1], J.shape[1]
+    return tuple(torch.empty(shape, dtype=torch.float32, device=M.device)
+                 for shape in ((B, nv), (B, ne), (B, nv)))
+
+
 def newton_solve(
     M, qacc_smooth, warmstart, J, aref, D, R, floss, active,
     con_scale, con_fscale, con_dim_mask, con_active, con_Rn, con_mu,
@@ -356,66 +417,84 @@ def newton_solve(
     args = (M, qacc_smooth, warmstart, J, aref, D, R, floss, active,
             con_scale, con_fscale, con_dim_mask, con_active, con_Rn, con_mu)
     mode = resolve_gram_mode(gram_mode)
-    B, nv, ne, K = _check(args, nf, nl, pool_dims)
+    B = _check(args, nf, nl, pool_dims)[0]
     if M.device.type == "cpu":
         return newton_core_torch(
             *args, nf=nf, nl=nl, iterations=iterations, pool_dims=pool_dims
         )
-    if M.device.type != "cuda":
-        raise ValueError(f"newton_solve: unsupported device {M.device}")
-    qacc = torch.empty((B, nv), dtype=torch.float32, device=M.device)
-    f = torch.empty((B, ne), dtype=torch.float32, device=M.device)
-    qfrc = torch.empty((B, nv), dtype=torch.float32, device=M.device)
-    if B == 0:
-        return qacc, f, qfrc
-    fn = _lib().newton_solve_f32
-    pools = pool_dims if pool_dims is not None else ((K, 6),)
-    pool_k = (ctypes.c_int * len(pools))(*[int(Kp) for Kp, _dp in pools])
-    pool_dim = (ctypes.c_int * len(pools))(*[int(dp) for _Kp, dp in pools])
-    ladder = (ctypes.c_float * len(_LS_ALPHAS))(*_LS_ALPHAS)
-    with torch.cuda.device(M.device):
-        stream = torch.cuda.current_stream(M.device).cuda_stream
-        err = fn(
-            *[x.data_ptr() for x in args],
-            qacc.data_ptr(), f.data_ptr(), qfrc.data_ptr(),
-            B, nv, nf, nl, len(pools), pool_k, pool_dim, iterations, ladder,
-            len(_LS_ALPHAS), GRAM_MODES.index(mode), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"newton kernel launch failed: cudaError {err}")
-    newton_solve.launches[mode] += 1
-    return qacc, f, qfrc
+    out = _outputs(args)
+    _launch("newton_solve_f32", args, nf, nl, pool_dims, mode,
+            iterations=iterations, out=out)
+    if B:
+        newton_solve.launches[mode] += 1
+    return out
 
 
 newton_solve.launches = {mode: 0 for mode in GRAM_MODES}
 
+# phases of the kernel's cycle profile (`newton_profile`), in order
+PHASES = ("staging", "z_fw", "grad", "gram", "cholesky_solves", "jd_md",
+          "ladder", "argmin_vertex", "update")
 
-def gram(J, w, U, wU, M, gram_mode: str):
-    """H of `gram_torch` for a batch, through the kernel's own Gram device
-    function in the given mode: one block per env, no solve.  Off the main
-    path: chip_smoke.py and the card tests hold each mode's Gram against a
-    float64 `gram_torch`.  CPU tensors run `gram_torch`."""
+
+def newton_profile(*args, nf: int, nl: int, iterations: int, pool_dims=None,
+                   gram_mode: str | None = None):
+    """The kernel's solve with SM clock stamps at its phase boundaries,
+    on CUDA tensors only; off the main path and not counted in
+    `newton_solve.launches`.  Returns (qacc, f, qfrc, cycles): cycles
+    (B, len(PHASES) + 1) int64, per env the SM cycles of each phase of
+    PHASES summed over the iterations, then the whole solve (which also
+    holds the final forces and the stamps)."""
     mode = resolve_gram_mode(gram_mode)
-    B, ne, nv = J.shape
-    nu = U.shape[1]
-    shapes = ((B, ne, nv), (B, ne), (B, nu, nv), (B, nu), (B, nv, nv))
-    for name, x, shp in zip(("J", "w", "U", "wU", "M"), (J, w, U, wU, M), shapes):
-        if x.device != J.device or x.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32 on {J.device}")
-        if tuple(x.shape) != shp or not x.is_contiguous():
-            raise ValueError(f"{name}: expected contiguous {shp}, got {tuple(x.shape)}")
-    if J.device.type == "cpu":
+    out = _outputs(args)
+    cyc = torch.zeros((args[0].shape[0], len(PHASES) + 1), dtype=torch.int64,
+                      device=args[0].device)
+    _launch("newton_profile_f32", args, nf, nl, pool_dims, mode,
+            iterations=iterations, out=out, extra=(cyc.data_ptr(),))
+    return (*out, cyc)
+
+
+def gram(M, qacc_smooth, warmstart, J, aref, D, R, floss, active,
+         con_scale, con_fscale, con_dim_mask, con_active, con_Rn, con_mu,
+         *, nf: int, nl: int, pool_dims=None, gram_mode: str | None = None):
+    """H (B, nv, nv) of the solve's first iteration, at the warm start,
+    alone: on CUDA tensors through the kernel's own staging, penalty and
+    Gram device code in the given mode (no solve, not counted in
+    `newton_solve.launches`); on CPU tensors `gram_torch` of Penalty.fw
+    at z = J warmstart - aref.  Off the main path: chip_smoke.py and the
+    card tests hold each mode's Gram against a float64 `gram_torch`."""
+    args = (M, qacc_smooth, warmstart, J, aref, D, R, floss, active,
+            con_scale, con_fscale, con_dim_mask, con_active, con_Rn, con_mu)
+    mode = resolve_gram_mode(gram_mode)
+    B, nv, _ne, _K = _check(args, nf, nl, pool_dims)
+    if M.device.type == "cpu":
+        z = _matvec(J, warmstart) - aref
+        _f, w, U, wU = Penalty(J, *args[5:], nf=nf, nl=nl,
+                               pool_dims=pool_dims).fw(z, True)
         return gram_torch(J, w, U, wU, M)
-    H = torch.empty((B, nv, nv), dtype=torch.float32, device=J.device)
-    if B == 0:
-        return H
-    with torch.cuda.device(J.device):
-        stream = torch.cuda.current_stream(J.device).cuda_stream
-        err = _lib().newton_gram_f32(
-            J.data_ptr(), w.data_ptr(), U.data_ptr(), wU.data_ptr(),
-            M.data_ptr(), H.data_ptr(), B, nv, ne, nu,
-            GRAM_MODES.index(mode), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"newton gram kernel launch failed: cudaError {err}")
+    H = torch.empty((B, nv, nv), dtype=torch.float32, device=M.device)
+    _launch("newton_gram_f32", args, nf, nl, pool_dims, mode, out=(H,))
     return H
+
+
+def kernel_resources(nv: int, nf: int, nl: int, K: int, pool_dims=None,
+                     gram_mode: str | None = None) -> dict:
+    """The solve kernel's launch plan and resources on the current card
+    for a layout, as its launches compute them (csrc/newton.cu:
+    make_params): envs per block, shared bytes per env and per block,
+    resident blocks and envs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    registers and local (spill) bytes per thread.  Raises ValueError for
+    an nv the kernel is not instantiated for, RuntimeError for a layout
+    it refuses."""
+    mode = resolve_gram_mode(gram_mode)
+    _check_width(nv)
+    npool, pool_k, pool_dim = _pool_arrays(K, pool_dims)
+    out = (ctypes.c_int * 5)()
+    err = _lib().newton_resources(nv, GRAM_MODES.index(mode), nf, nl, npool,
+                                  pool_k, pool_dim, out)
+    if err != 0:
+        raise RuntimeError(f"newton kernel resources: cudaError {err}")
+    epb, env_bytes, blocks, regs, local = list(out)
+    return dict(envs_per_block=epb, env_bytes=env_bytes,
+                smem_bytes_per_block=epb * env_bytes, blocks_per_sm=blocks,
+                envs_per_sm=blocks * epb, registers=regs, local_bytes=local)

@@ -88,15 +88,16 @@ def test_mxu_plain_matches_pallas_interpret(pooled):
 
 def test_gram_plain_matches_float64(pooled):
     """gram_torch in float32 (what `gram` runs for CPU tensors, in either
-    mode) against the same sums in float64 numpy, on the first iteration's
-    weights and rank-1 rows: 1e-5 scaled by 1 + max |H| per env, the
-    limit chip_smoke.py holds the kernel's Gram to."""
+    mode: the first iteration's H at the warm start) against the same sums
+    in float64 numpy, on the first iteration's weights and rank-1 rows:
+    1e-5 scaled by 1 + max |H| per env, the limit chip_smoke.py holds the
+    kernel's Gram to."""
     args, kw = pooled
     J, M = args[3], args[0]
     z = (J @ args[2][..., None])[..., 0] - args[4]
     _f, w, U, wU = N.Penalty(J, *args[5:], **kw).fw(z, True)
     assert U.shape[1] == 3 * (8 + 28) and bool((wU != 0).any())
-    H = N.gram(J, w, U, wU, M, "mxu")
+    H = N.gram(*args, gram_mode="mxu", **kw)
     assert torch.equal(H, N.gram_torch(J, w, U, wU, M))
     d = lambda x: x.numpy().astype(np.float64)
     ref = (np.einsum("bri,br,brj->bij", d(J), d(w), d(J))
@@ -122,7 +123,7 @@ def test_gram_mode_selected_as_the_reference_does(pooled, monkeypatch):
     with pytest.raises(ValueError):
         N.newton_solve(*args, iterations=1, gram_mode="MXU", **kw)
     with pytest.raises(ValueError):
-        N.gram(args[3], args[4], args[3][:, :0], args[4][:, :0], args[0], "bf16")
+        N.gram(*args, gram_mode="bf16", **kw)
 
 
 def test_build_hash_covers_every_source(tmp_path, monkeypatch):

@@ -10,7 +10,12 @@ Inputs come from the port's own pipeline at near-keyframe standing
 states, where the float32 Newton solve is stable (chip_smoke.py covers
 fallen-start and stiff states with its float64-referenced check).  The
 kernel runs in both Gram modes ("vpu" on the CUDA cores, "mxu" on the
-tensor cores); a short PPO train_iteration runs on the card.
+tensor cores), on both contact layouts, at B = 1, 256 and 4099 (a
+ragged last block); a batch and a permutation of it give bitwise the same
+result per env, two launches are bitwise equal, and the phase profile's
+cycles add up; the launch plan the kernel's host code computes fits the
+card's shared memory, and layouts it cannot hold raise; a short PPO
+train_iteration runs on the card.
 """
 
 import numpy as np
@@ -88,17 +93,110 @@ def test_newton_kernel_finite_at_8_iterations(inputs, mode):
 
 @pytest.mark.parametrize("mode", N.GRAM_MODES)
 def test_gram_kernel_matches_float64(inputs, mode):
-    """H from the kernel's Gram device function alone, against a float64
-    gram_torch on the first iteration's weights: 1e-5 scaled by 1 + max
-    |H| per env (the reference's MXU Gram measured ~2e-6)."""
+    """H of the first iteration alone, through the kernel's own staging,
+    penalty and Gram device code, against a float64 gram_torch on the
+    first iteration's weights: 1e-5 scaled by 1 + max |H| per env (the
+    reference's MXU Gram measured ~2e-6)."""
     args, static = inputs
     J, M = args[3], args[0]
     z = (J @ args[2][..., None])[..., 0] - args[4]
     _f, w, U, wU = N.Penalty(J, *args[5:], **static).fw(z, True)
-    H = N.gram(J, w, U, wU, M, mode)
+    H = N.gram(*args, gram_mode=mode, **static)
     H64 = N.gram_torch(*(x.double() for x in (J, w, U, wU, M)))
     err = (H.double() - H64).abs().amax((1, 2)) / (1.0 + H64.abs().amax((1, 2)))
     assert err.max().item() <= 1e-5
+
+
+def _tiled(args, B):
+    """The inputs' envs repeated to a batch of B."""
+    reps = -(-B // args[0].shape[0])
+    return [a.repeat(reps, *([1] * (a.dim() - 1)))[:B].contiguous() for a in args]
+
+
+@pytest.mark.parametrize("mode", N.GRAM_MODES)
+def test_newton_kernel_ragged_batches(inputs, mode):
+    """B = 1 and B = 4096 + 3 (the last block holds fewer envs than the
+    others): every env within 1e-3 of the plain version at 2 iterations,
+    as at B = 256."""
+    args, static = inputs
+    for B in (1, 4096 + 3):
+        a = _tiled(args, B)
+        k = N.newton_solve(*a, iterations=2, gram_mode=mode, **static)
+        p = N.newton_core_torch(*a, iterations=2, **static)
+        for kk, pp, what in zip(k, p, ("qacc", "f", "qfrc")):
+            assert kk.shape == pp.shape and _scaled(kk, pp) <= 1e-3, (B, what)
+
+
+@pytest.mark.parametrize("mode", N.GRAM_MODES)
+def test_newton_kernel_permutation_invariant(inputs, mode):
+    """A batch and a permutation of it give bitwise the same result per
+    env at 8 iterations: nothing leaks between the envs of a block."""
+    args, static = inputs
+    B = args[0].shape[0]
+    perm = torch.as_tensor(np.random.default_rng(3).permutation(B)).cuda()
+    k = N.newton_solve(*args, iterations=8, gram_mode=mode, **static)
+    kp = N.newton_solve(*[a[perm].contiguous() for a in args], iterations=8,
+                        gram_mode=mode, **static)
+    for x, xp in zip(k, kp):
+        assert torch.equal(x[perm], xp)
+
+
+@pytest.mark.parametrize("mode", N.GRAM_MODES)
+def test_newton_kernel_deterministic(inputs, mode):
+    """Two launches on the same inputs are bitwise equal."""
+    args, static = inputs
+    k1 = N.newton_solve(*args, iterations=8, gram_mode=mode, **static)
+    k2 = N.newton_solve(*args, iterations=8, gram_mode=mode, **static)
+    assert all(torch.equal(x, y) for x, y in zip(k1, k2))
+
+
+@pytest.mark.parametrize("mode", N.GRAM_MODES)
+def test_newton_profile_phases(inputs, mode):
+    """The profile entry: every phase's cycles positive for every env,
+    their sum no more than the total; its solve agrees with the plain
+    kernel's within 1e-5 scaled; no launch counted."""
+    args, static = inputs
+    before = dict(N.newton_solve.launches)
+    *out, cyc = N.newton_profile(*args, iterations=8, gram_mode=mode, **static)
+    torch.cuda.synchronize()
+    assert N.newton_solve.launches == before
+    assert cyc.shape == (args[0].shape[0], len(N.PHASES) + 1)
+    assert bool((cyc[:, :-1] > 0).all())
+    assert bool((cyc[:, :-1].sum(1) <= cyc[:, -1]).all())
+    k = N.newton_solve(*args, iterations=8, gram_mode=mode, **static)
+    for x, y in zip(out, k):
+        assert _scaled(x, y) <= 1e-5
+
+
+@pytest.mark.parametrize("mode", N.GRAM_MODES)
+def test_newton_kernel_plan(inputs, mode):
+    """The launch plan the kernel's host code computes: an env's shared
+    arrays (J, then aref, z, jd, f and the tables) in a multiple of 16
+    bytes, 1-4 envs per block within 227 KB of shared memory, no spills;
+    at least 12 resident envs per SM on the pooled layout, 6 on the
+    uniform one."""
+    args, static = inputs
+    nv, ne, K = args[0].shape[-1], args[3].shape[1], args[9].shape[1]
+    r = N.kernel_resources(nv, static["nf"], static["nl"], K,
+                           static["pool_dims"], mode)
+    assert r["env_bytes"] % 16 == 0 and r["env_bytes"] >= 4 * ne * (nv + 4)
+    assert 1 <= r["envs_per_block"] <= 4
+    assert r["smem_bytes_per_block"] == r["envs_per_block"] * r["env_bytes"]
+    assert r["smem_bytes_per_block"] <= 227 * 1024
+    assert r["envs_per_sm"] >= (12 if static["pool_dims"] else 6)
+    assert r["local_bytes"] == 0
+
+
+def test_newton_kernel_refuses_layouts():
+    """Layouts the kernel cannot hold raise before a launch: condim 7,
+    256 slots (the active list packs a slot in 8 bits), and rows too few
+    for jd and f to hold the 18 x 18 Gram."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for nf, nl, K, pools in ((12, 12, 4, ((4, 7),)), (12, 12, 256, None),
+                             (0, 0, 1, ((1, 1),))):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            N.kernel_resources(18, nf, nl, K, pools)
 
 
 def test_train_iteration_on_card():

@@ -12,10 +12,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
               at --envs envs (reset states, states after a few control
               steps, the stiff contact fixture of the tests).  At 2
               Newton iterations every env whose float32 solve is stable
+              (the plain version within 1e-4 of its float64 run and of
+              each of 8 runs on inputs moved by one float32 rounding)
               agrees within 1e-3 (scaled as in tests/test_ops.py), and
               the two modes agree with each other there within 1e-3;
               every env is held against a float64 run within a limit set
-              by its own float32 noise floor (see phase_kernels).  At 8
+              by its own float32 noise floor (see check_kernel_set).  At 8
               iterations every output is finite.  Each mode's Gram alone
               (the first iteration's H through the kernel's own staging,
               penalty and Gram code) is held within 1e-5 of a float64
@@ -47,19 +49,39 @@ Phases, in order; any failure exits non-zero and prints no result line:
               CPU (params within 1e-5, lr_mult equal).  Prints rollout env
               control steps/s, update ms, iteration s, approx_kl and
               clip_fraction per iteration.
-  6. report   a JSON line with the main path's, the kernels' and the
-              train phase's numbers; one JSON line listing each kernel
-              (launches in the run of the path that runs it, named in
-              launches_over; max abs error against its plain version on
-              the stable envs at 2 iterations, named in max_abs_err_over;
-              times and bound on the after-step set, the bound counting
-              the operations and bytes of its active contact slots, the
-              work the function needs); the
-              card's name and power limit; and last
-              the line {"ok": true, "device": {"platform": "gpu", ...}}.
+  6. breadth  every other env option.  (a) The training CLI's default
+              env (cli/train.py: position servos, full table, 48 uniform
+              6-row slots, the model's 15 Newton iterations): PPO.init
+              and one train_iteration at PPOConfig() with QTPU_GRAM unset
+              (320 vpu launches, no mxu), then the kernel in both modes on
+              the path's states after it (check_kernel_set: the kernel
+              phase's checks at 2 iterations and finite at 15; timed at
+              15 with its bound).  (b) At --envs envs, 3 warm-up and 5
+              timed control steps each: biped (torque, condim pools),
+              Go2 with position servos and centered actions, rough
+              terrain (amplitude 0.04) with gait conditioning (53-dim
+              obs), and domain randomization with actuator latency 2 plus
+              the "shaped" profile with the three anti-standing levers;
+              finite obs and reward of the env's width and exactly 10 vpu
+              launches per control step.  Every config's step_autoreset
+              on the card is held against the CPU at B = 8 (same state,
+              env 1 resetting into the same injected state) within 1e-3;
+              the Go2 and terrain runs' states are kernel input sets too.
+  7. report   a JSON line with the main path's, the kernels', the train
+              and the breadth phases' numbers; one JSON line listing each
+              kernel (launches in the run of the path that runs it, named
+              in launches_over, and in each breadth path, named in
+              launches_by_path; max abs error against its plain version
+              on the stable envs at 2 iterations over every input set,
+              named in max_abs_err_over; times and bound on the
+              after-step set, the bound counting the operations and
+              bytes of its active contact slots, the work the function
+              needs); the card's name and power limit; and last the line
+              {"ok": true, "device": {"platform": "gpu", ...}}.
 
-The main and train phases select the Gram mode through QTPU_GRAM, as the
-reference does; the script clears any inherited value first.
+The main, train and breadth phases select the Gram mode through
+QTPU_GRAM, as the reference does; the script clears any inherited value
+first.
 Weights and states are random, made from --seed.  Nothing is fetched.
 """
 
@@ -122,11 +144,13 @@ def solver_inputs(env, qpos, qvel, ctrl, params):
     from quadruped_tpu_torch.physics.kinematics import fk
     from quadruped_tpu_torch.physics.smooth import smooth_dynamics
     from quadruped_tpu_torch.physics.solver import newton_args
+    from quadruped_tpu_torch.physics.terrain import terrain_of
 
     m, pl = env.m, env.pipeline
     kin = fk(m, qpos, qvel)
     M, _L, _qf, qs, _qa = smooth_dynamics(m, params, kin, qpos, qvel, ctrl)
-    efc = assemble(m, pl.layout, pl.table, kin, qpos, qvel)
+    efc = assemble(m, pl.layout, pl.table, kin, qpos, qvel,
+                   terrain=terrain_of(params))
     return newton_args(M, qs, torch.zeros_like(qs), efc)
 
 
@@ -292,6 +316,151 @@ def log_timing(what, B, it, t):
           f"{t['gram_flops'] / 1e9:.3f}; {t['bytes'] / 1e6:.2f} MB)")
 
 
+ERR_KEYS = ("max_abs_err", "max_abs_err_all_envs", "max_scaled_err_2it",
+            "max_scaled_err_2it_well", "max_scaled_err_full_it",
+            "max_err_over_env_limit")
+
+
+def check_kernel_set(name, args, kw, full_it, seed):
+    """Each Gram mode of the kernel against the plain version on one input
+    set (the Newton op's arguments at B envs), at 2 iterations and at
+    full_it, and the two modes against each other.  Raises on any check
+    that fails; returns {mode: the set's errors (ERR_KEYS; mxu also
+    max_scaled_err_vs_vpu_2it_well)}."""
+    from quadruped_tpu_torch.ops import newton as N
+
+    dev, B = args[0].device, args[0].shape[0]
+    report = {mode: {} for mode in MODES}
+
+    def env_err(x, y):      # per env, worst of qacc and qfrc
+        return torch.maximum(scaled_err(x[0].double(), y[0].double()),
+                             scaled_err(x[2].double(), y[2].double()))
+
+    p2 = N.newton_core_torch(*args, iterations=2, **kw)
+    t2 = N.newton_core_torch(*[a.double() for a in args], iterations=2, **kw)
+    # the plain version again on 4 inputs moved by one float32
+    # rounding (relative 2^-23 noise on M, J, aref, D, R), in each
+    # kernel's summation precision: the Gram summed in float32 (vpu)
+    # and accumulated in float64, rounded once (mxu)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    moved_args = [
+        [a * (1 + 2.0**-23 * torch.randn(a.shape, generator=g, device=dev))
+         if i in (0, 3, 4, 5, 6) else a for i, a in enumerate(args)]
+        for _ in range(4)
+    ]
+    moved_runs = [
+        N.newton_core_torch(*a2, iterations=2, gram_acc=acc, **kw)
+        for acc in (None, torch.float64) for a2 in moved_args
+    ]
+    pf = N.newton_core_torch(*args, iterations=full_it, **kw)
+    # float32 noise floor of each env's solve: how far the plain
+    # version lies from its float64 run, and how far it moves when
+    # its inputs move by one rounding (every moved run; and how far
+    # each lies from float64, for `spread`)
+    e_pt = env_err(p2, t2)
+    e_moved = [env_err(m2, p2) for m2 in moved_runs]
+    floor = e_pt
+    spread = e_pt
+    for m2, e_m in zip(moved_runs, e_moved):
+        floor = torch.maximum(floor, e_m)
+        spread = torch.maximum(spread, torch.maximum(e_m, env_err(m2, t2)))
+    # Tolerance (2 iterations).  On every env whose float32 solve is
+    # stable (noise floor <= 1e-4) the kernel agrees with the plain
+    # version within 1e-3, scaled as in tests/test_ops.py.  On the
+    # others (deep penetration: fallen starts, the stiff fixture; or a
+    # discrete choice, a line-search argmin or a cone zone, that one
+    # rounding flips) the float32 Newton step is ill-conditioned and any
+    # two float32 solves differ by up to the floor.  So every env,
+    # stable or not, is also held to its own limit: no further from the
+    # float64 solve than 2e-3 + 3 x the spread of its float32 solves
+    # (the plain version and the 8 moved runs, in both precisions).
+    well = floor <= 1e-4
+    lim = 2e-3 + 3.0 * spread
+    # the envs a floor from the first moved run alone would call stable:
+    # the ones the other moved runs show unstable, and how far the
+    # kernel and those runs lie from the plain version there
+    flip = (torch.maximum(e_pt, e_moved[0]) <= 1e-4) & ~well
+    flip_moved = max((e_m[flip].max().item() for e_m in e_moved), default=0.0) \
+        if flip.any() else 0.0
+    k2s, e_kts = {}, {}
+    for mode in MODES:
+        before = dict(N.newton_solve.launches)
+        k2 = k2s[mode] = N.newton_solve(*args, iterations=2, gram_mode=mode, **kw)
+        kf = N.newton_solve(*args, iterations=full_it, gram_mode=mode, **kw)
+        torch.cuda.synchronize()
+        want = {m: before[m] + (2 if m == mode else 0) for m in MODES}
+        if N.newton_solve.launches != want:
+            raise RuntimeError(f"the {mode} kernel check launched "
+                               f"{N.newton_solve.launches}, expected {want}")
+        e_kp = env_err(k2, p2)   # kernel vs plain, float32 both
+        e_kt = e_kts[mode] = env_err(k2, t2)   # kernel vs float64
+        e2_well = e_kp[well].max().item() if well.any() else 0.0
+        over = e_kt > lim
+        n_over = int(over.sum())
+        ratio = (e_kt / lim).max().item()
+        for i in over.nonzero()[:, 0].tolist():
+            log(f"  over its limit ({mode}, {name}) env {i}: kernel vs "
+                f"float64 {e_kt[i].item():.3e}, plain vs float64 "
+                f"{e_pt[i].item():.3e}, spread {spread[i].item():.3e}, "
+                f"kernel vs plain {e_kp[i].item():.3e}")
+        e2 = e_kp.max().item()
+        ef = max(scaled_err(kf[i], pf[i]).max().item() for i in (0, 2))
+        abs2 = max((k2[i] - p2[i]).abs().max().item() for i in (0, 2))
+        abs2_well = max(
+            (k2[i] - p2[i])[well].abs().max().item() if well.any() else 0.0
+            for i in (0, 2)
+        )
+        fin = all(torch.isfinite(x).all().item() for x in kf)
+        ncon = args[12].sum().item()
+        log(f"kernel {mode}[{name}]: B={B} active contacts/env "
+            f"{ncon / B:.2f}; 2 it: kernel vs plain max scaled err "
+            f"{e2:.3e} (abs {abs2:.3e}), over the {int(well.sum())} envs "
+            f"float32 solves stably: {e2_well:.3e} (abs {abs2_well:.3e}); "
+            f"kernel vs float64 {e_kt.max().item():.3e}, plain vs float64 "
+            f"{e_pt.max().item():.3e}, largest float32 noise floor "
+            f"{floor.max().item():.3e}, {int((e_kp > 1e-3).sum())} envs "
+            f"above 1e-3 of plain; worst kernel-vs-float64 error over its "
+            f"own env's limit {ratio:.3e}, {n_over} envs over it; "
+            f"{int(flip.sum())} envs stable on the first moved run but not "
+            f"on every one (kernel vs plain there up to "
+            f"{e_kp[flip].max().item() if flip.any() else 0.0:.3e}, moved "
+            f"runs up to {flip_moved:.3e}); "
+            f"{full_it} it: max scaled err {ef:.3e}, finite={fin}")
+        if not fin:
+            raise RuntimeError(f"{mode} kernel outputs not finite at "
+                               f"{full_it} iterations ({name})")
+        if not (e2_well <= 1e-3 and n_over == 0):
+            raise RuntimeError(
+                f"{mode} kernel vs plain at 2 iterations out of tolerance "
+                f"({name}): {e2_well:.3e} on stable envs, {n_over} envs "
+                f"over their float64 limit"
+            )
+        report[mode].update(zip(ERR_KEYS, (abs2_well, abs2, e2, e2_well, ef, ratio)))
+    # the two modes against each other on the stable envs, 1e-3
+    e_mv = env_err(k2s["mxu"], k2s["vpu"])
+    e_mv_well = e_mv[well].max().item() if well.any() else 0.0
+    log(f"kernel mxu vs vpu [{name}], 2 it: max scaled err over the stable "
+        f"envs {e_mv_well:.3e}, over all envs {e_mv.max().item():.3e}")
+    if not e_mv_well <= 1e-3:
+        raise RuntimeError(f"mxu vs vpu at 2 iterations ({name}): {e_mv_well:.3e}")
+    report["mxu"]["max_scaled_err_vs_vpu_2it_well"] = e_mv_well
+    # the mxu kernel against the plain version in its own summation
+    # (Gram accumulated in float64), and at its worst env the float64
+    # distances of the float32 solves the limit samples, by summation
+    e_kr = env_err(k2s["mxu"], N.newton_core_torch(
+        *args, iterations=2, gram_acc=torch.float64, **kw))
+    i = int(torch.argmax(e_kts["mxu"] / lim))
+    far = [env_err(m2, t2)[i].item() for m2 in moved_runs]
+    log(f"kernel mxu vs the plain version in its own summation [{name}], "
+        f"2 it: median {e_kr.median().item():.3e}, max over the stable "
+        f"envs {e_kr[well].max().item() if well.any() else 0.0:.3e}; at "
+        f"env {i}, its worst against its limit: kernel vs float64 "
+        f"{e_kts['mxu'][i].item():.4e}, plain {e_pt[i].item():.4e}, moved "
+        f"runs up to {max(far[:4]):.4e} (float32 summation) and "
+        f"{max(far[4:]):.4e} (float64-accumulated Gram)")
+    return report
+
+
 def phase_kernels(env, gen, dev, B, seed):
     """Each Gram mode of the kernel vs the plain version on the card, per
     input set; the isolated Gram vs float64; times and bounds per set."""
@@ -299,138 +468,15 @@ def phase_kernels(env, gen, dev, B, seed):
 
     it = env.m.opt.iterations
     timings = {}
-
-    report = {mode: {"max_abs_err": 0.0, "max_abs_err_all_envs": 0.0,
-                     "max_scaled_err_2it": 0.0, "max_scaled_err_2it_well": 0.0,
-                     "max_scaled_err_8it": 0.0, "max_err_over_env_limit": 0.0}
-              for mode in MODES}
+    report = {mode: dict.fromkeys(ERR_KEYS, 0.0) for mode in MODES}
     report["mxu"]["max_scaled_err_vs_vpu_2it_well"] = 0.0
-
-    def env_err(x, y):      # per env, worst of qacc and qfrc
-        return torch.maximum(scaled_err(x[0].double(), y[0].double()),
-                             scaled_err(x[2].double(), y[2].double()))
-
     for name, (qpos, qvel, ctrl, params) in kernel_input_sets(
             env, gen, dev, B, seed).items():
         args, kw = solver_inputs(env, qpos, qvel, ctrl, params)
-        p2 = N.newton_core_torch(*args, iterations=2, **kw)
-        t2 = N.newton_core_torch(*[a.double() for a in args], iterations=2, **kw)
-        # the plain version again on 4 inputs moved by one float32
-        # rounding (relative 2^-23 noise on M, J, aref, D, R), in each
-        # kernel's summation precision: the Gram summed in float32 (vpu)
-        # and accumulated in float64, rounded once (mxu)
-        g = torch.Generator(device=dev).manual_seed(seed + 1)
-        moved_args = [
-            [a * (1 + 2.0**-23 * torch.randn(a.shape, generator=g, device=dev))
-             if i in (0, 3, 4, 5, 6) else a for i, a in enumerate(args)]
-            for _ in range(4)
-        ]
-        moved_runs = [
-            N.newton_core_torch(*a2, iterations=2, gram_acc=acc, **kw)
-            for acc in (None, torch.float64) for a2 in moved_args
-        ]
-        p8 = N.newton_core_torch(*args, iterations=8, **kw)
-        # float32 noise floor of each env's solve: how far the plain
-        # version lies from its float64 run, and how far it moves when
-        # its inputs move by one rounding (the first moved run; every
-        # moved run, and how far each lies from float64, for `spread`)
-        e_pt = env_err(p2, t2)
-        floor = torch.maximum(e_pt, env_err(moved_runs[0], p2))
-        spread = e_pt
-        for m2 in moved_runs:
-            spread = torch.maximum(spread, torch.maximum(
-                env_err(m2, p2), env_err(m2, t2)))
-        # Tolerance (2 iterations).  On every env whose float32 solve is
-        # stable (noise floor <= 1e-4) the kernel agrees with the plain
-        # version within 1e-3, scaled as in tests/test_ops.py.  On the
-        # others (deep penetration: fallen starts, the stiff fixture) the
-        # float32 Newton step is ill-conditioned and any two float32
-        # solves differ by up to the floor.  So every env, stable or not,
-        # is also held to its own limit: no further from the float64
-        # solve than 2e-3 + 3 x the spread of its float32 solves (the
-        # plain version and the 8 moved runs, in both precisions).
-        well = floor <= 1e-4
-        lim = 2e-3 + 3.0 * spread
-        k2s, e_kts = {}, {}
-        for mode in MODES:
-            before = dict(N.newton_solve.launches)
-            k2 = k2s[mode] = N.newton_solve(*args, iterations=2, gram_mode=mode, **kw)
-            k8 = N.newton_solve(*args, iterations=8, gram_mode=mode, **kw)
-            torch.cuda.synchronize()
-            want = {m: before[m] + (2 if m == mode else 0) for m in MODES}
-            if N.newton_solve.launches != want:
-                raise RuntimeError(f"the {mode} kernel check launched "
-                                   f"{N.newton_solve.launches}, expected {want}")
-            e_kp = env_err(k2, p2)   # kernel vs plain, float32 both
-            e_kt = e_kts[mode] = env_err(k2, t2)   # kernel vs float64
-            e2_well = e_kp[well].max().item() if well.any() else 0.0
-            over = e_kt > lim
-            n_over = int(over.sum())
-            ratio = (e_kt / lim).max().item()
-            for i in over.nonzero()[:, 0].tolist():
-                log(f"  over its limit ({mode}, {name}) env {i}: kernel vs "
-                    f"float64 {e_kt[i].item():.3e}, plain vs float64 "
-                    f"{e_pt[i].item():.3e}, spread {spread[i].item():.3e}, "
-                    f"kernel vs plain {e_kp[i].item():.3e}")
-            e2 = e_kp.max().item()
-            e8 = max(scaled_err(k8[i], p8[i]).max().item() for i in (0, 2))
-            abs2 = max((k2[i] - p2[i]).abs().max().item() for i in (0, 2))
-            abs2_well = max(
-                (k2[i] - p2[i])[well].abs().max().item() if well.any() else 0.0
-                for i in (0, 2)
-            )
-            fin = all(torch.isfinite(x).all().item() for x in k8)
-            ncon = args[12].sum().item()
-            log(f"kernel {mode}[{name}]: B={B} active contacts/env "
-                f"{ncon / B:.2f}; 2 it: kernel vs plain max scaled err "
-                f"{e2:.3e} (abs {abs2:.3e}), over the {int(well.sum())} envs "
-                f"float32 solves stably: {e2_well:.3e} (abs {abs2_well:.3e}); "
-                f"kernel vs float64 {e_kt.max().item():.3e}, plain vs float64 "
-                f"{e_pt.max().item():.3e}, largest float32 noise floor "
-                f"{floor.max().item():.3e}, {int((e_kp > 1e-3).sum())} envs "
-                f"above 1e-3 of plain; worst kernel-vs-float64 error over its "
-                f"own env's limit {ratio:.3e}, {n_over} envs over it; "
-                f"8 it: max scaled err {e8:.3e}, finite={fin}")
-            if not fin:
-                raise RuntimeError(
-                    f"{mode} kernel outputs not finite at 8 iterations ({name})")
-            if not (e2_well <= 1e-3 and n_over == 0):
-                raise RuntimeError(
-                    f"{mode} kernel vs plain at 2 iterations out of tolerance "
-                    f"({name}): {e2_well:.3e} on stable envs, {n_over} envs "
-                    f"over their float64 limit"
-                )
-            r = report[mode]
-            r["max_abs_err"] = max(r["max_abs_err"], abs2_well)
-            r["max_abs_err_all_envs"] = max(r["max_abs_err_all_envs"], abs2)
-            r["max_scaled_err_2it"] = max(r["max_scaled_err_2it"], e2)
-            r["max_scaled_err_2it_well"] = max(r["max_scaled_err_2it_well"], e2_well)
-            r["max_scaled_err_8it"] = max(r["max_scaled_err_8it"], e8)
-            r["max_err_over_env_limit"] = max(r["max_err_over_env_limit"], ratio)
-        # the two modes against each other on the stable envs, 1e-3
-        e_mv = env_err(k2s["mxu"], k2s["vpu"])
-        e_mv_well = e_mv[well].max().item() if well.any() else 0.0
-        log(f"kernel mxu vs vpu [{name}], 2 it: max scaled err over the stable "
-            f"envs {e_mv_well:.3e}, over all envs {e_mv.max().item():.3e}")
-        if not e_mv_well <= 1e-3:
-            raise RuntimeError(f"mxu vs vpu at 2 iterations ({name}): {e_mv_well:.3e}")
-        r = report["mxu"]
-        r["max_scaled_err_vs_vpu_2it_well"] = max(
-            r["max_scaled_err_vs_vpu_2it_well"], e_mv_well)
-        # the mxu kernel against the plain version in its own summation
-        # (Gram accumulated in float64), and at its worst env the float64
-        # distances of the float32 solves the limit samples, by summation
-        e_kr = env_err(k2s["mxu"], N.newton_core_torch(
-            *args, iterations=2, gram_acc=torch.float64, **kw))
-        i = int(torch.argmax(e_kts["mxu"] / lim))
-        far = [env_err(m2, t2)[i].item() for m2 in moved_runs]
-        log(f"kernel mxu vs the plain version in its own summation [{name}], "
-            f"2 it: median {e_kr.median().item():.3e}, max over the stable "
-            f"envs {e_kr[well].max().item() if well.any() else 0.0:.3e}; at "
-            f"env {i}, its worst against its limit: kernel vs float64 "
-            f"{e_kts['mxu'][i].item():.4e}, plain {e_pt[i].item():.4e}, moved "
-            f"runs up to {max(far[:4]):.4e} (float32 summation) and "
-            f"{max(far[4:]):.4e} (float64-accumulated Gram)")
+        got = check_kernel_set(name, args, kw, it, seed)
+        for mode, errs in got.items():
+            for k, v in errs.items():
+                report[mode][k] = max(report[mode][k], v)
         t = timings[name] = time_kernel(args, kw, it)
         log_timing(name, B, it, t)
         if name == "after_steps":
@@ -585,78 +631,87 @@ def phase_main(env, policy, gen, dev, B, steps):
             "kernel_on_main_states": t_main}
 
 
+def train_iteration(trainer, ts, mode, label):
+    """One PPO.train_iteration in Gram `mode` (QTPU_GRAM set by the
+    caller), with the phase timer on: it must launch its own mode's kernel
+    frame_skip x n_steps times and the other's none, give finite metrics
+    and move the params.  Returns (ts, row)."""
+    from quadruped_tpu_torch.ops import newton as N
+    from quadruped_tpu_torch.timing import TIMER
+
+    env, cfg = trainer.env, trainer.cfg
+    params = [p.detach().clone() for p in ts.policy.parameters()]
+    for m in MODES:
+        N.newton_solve.launches[m] = 0
+    TIMER.reset()
+    TIMER.enabled = True
+    t0 = time.perf_counter()
+    ts, metrics = trainer.train_iteration(ts)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    TIMER.enabled = False
+    counts = dict(N.newton_solve.launches)
+    phases = TIMER.totals_ms()
+    expect = {m: (env.cfg.frame_skip * cfg.n_steps if m == mode else 0)
+              for m in MODES}
+    if counts != expect:
+        raise RuntimeError(f"{label} ({mode}) launched {counts}, expected {expect}")
+    metrics = {k: v.item() for k, v in metrics.items()}
+    bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+    if bad:
+        raise RuntimeError(f"non-finite train metrics ({label}, {mode}): {bad}")
+    new = [p.detach().clone() for p in ts.policy.parameters()]
+    if not all(torch.isfinite(p).all().item() for p in new):
+        raise RuntimeError(f"non-finite params after the {label} ({mode})")
+    moved = max((a - b).abs().max().item() for a, b in zip(new, params))
+    if not moved > 0.0:
+        raise RuntimeError(f"params unchanged by the {label} ({mode})")
+    row = dict(
+        gram_mode=mode, launches=counts,
+        rollout_s=phases["rollout"] / 1e3,
+        rollout_env_steps_per_s=cfg.num_envs * cfg.n_steps
+        / (phases["rollout"] / 1e3),
+        update_ms=phases["update"], iteration_s=dt,
+        max_param_change=moved, metrics=metrics,
+        phases_ms={k: v for k, v in phases.items()
+                   if k not in ("rollout", "update")},
+    )
+    log(f"{label} ({mode}): {cfg.num_envs} envs x "
+        f"{cfg.n_steps} steps; rollout {row['rollout_s']:.3f} s = "
+        f"{row['rollout_env_steps_per_s']:.1f} env control steps/s; "
+        f"update {row['update_ms']:.1f} ms ({cfg.n_epochs} epochs x "
+        f"{cfg.num_minibatches} minibatches); iteration {dt:.3f} s; "
+        f"approx_kl {metrics['approx_kl']:.4e}, clip_fraction "
+        f"{metrics['clip_fraction']:.4f}, loss {metrics['loss']:.4f}, "
+        f"mean_reward {metrics['mean_reward']:.4f}; Newton launches "
+        f"{counts}; largest param change {moved:.3e}")
+    return ts, row
+
+
 def phase_train(env, dev, seed):
     """The training configuration of record through PPO's entry points:
     the env of RECORD and PPOConfig()'s defaults, which are cli/train.py's
     (4096 envs, n_steps 32, 32 minibatches, 10 epochs, lr 3e-4).
-    cli/train.py defaults to position control, which the port does not
-    have yet (ROADMAP queue 1 item 13); the env here is the torque one.
     PPO.init, then two train_iterations: the first with QTPU_GRAM unset
     (the vpu Gram), the second with QTPU_GRAM=mxu; each must launch its
     own mode's kernel 10 x 32 = 320 times and the other's none.  The
-    phase timer is on (rollout / update split, device events)."""
+    phase timer is on (rollout / update split, device events).  The
+    training CLI's own default env (position servos) trains in the
+    breadth phase."""
     from quadruped_tpu_torch.learn.ppo import PPO, PPOConfig
-    from quadruped_tpu_torch.ops import newton as N
-    from quadruped_tpu_torch.timing import TIMER
 
     cfg = PPOConfig()
     trainer = PPO(env, cfg)
     ts = trainer.init(seed)
     torch.cuda.synchronize()
-    params = [p.detach().clone() for p in ts.policy.parameters()]
     saved = os.environ.pop("QTPU_GRAM", None)
     rows = []
     try:
         for mode in MODES:
             if mode == "mxu":
                 os.environ["QTPU_GRAM"] = "mxu"
-            for m in MODES:
-                N.newton_solve.launches[m] = 0
-            TIMER.reset()
-            TIMER.enabled = True
-            t0 = time.perf_counter()
-            ts, metrics = trainer.train_iteration(ts)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            TIMER.enabled = False
-            counts = dict(N.newton_solve.launches)
-            phases = TIMER.totals_ms()
-            expect = {m: (env.cfg.frame_skip * cfg.n_steps if m == mode else 0)
-                      for m in MODES}
-            if counts != expect:
-                raise RuntimeError(f"train iteration ({mode}) launched "
-                                   f"{counts}, expected {expect}")
-            metrics = {k: v.item() for k, v in metrics.items()}
-            bad = [k for k, v in metrics.items() if not math.isfinite(v)]
-            if bad:
-                raise RuntimeError(f"non-finite train metrics ({mode}): {bad}")
-            new = [p.detach().clone() for p in ts.policy.parameters()]
-            if not all(torch.isfinite(p).all().item() for p in new):
-                raise RuntimeError(f"non-finite params after the {mode} iteration")
-            moved = max((a - b).abs().max().item() for a, b in zip(new, params))
-            if not moved > 0.0:
-                raise RuntimeError(f"params unchanged by the {mode} iteration")
-            params = new
-            row = dict(
-                gram_mode=mode, launches=counts,
-                rollout_s=phases["rollout"] / 1e3,
-                rollout_env_steps_per_s=cfg.num_envs * cfg.n_steps
-                / (phases["rollout"] / 1e3),
-                update_ms=phases["update"], iteration_s=dt,
-                max_param_change=moved, metrics=metrics,
-                phases_ms={k: v for k, v in phases.items()
-                           if k not in ("rollout", "update")},
-            )
+            ts, row = train_iteration(trainer, ts, mode, "train iteration")
             rows.append(row)
-            log(f"train iteration ({mode}): {cfg.num_envs} envs x "
-                f"{cfg.n_steps} steps; rollout {row['rollout_s']:.3f} s = "
-                f"{row['rollout_env_steps_per_s']:.1f} env control steps/s; "
-                f"update {row['update_ms']:.1f} ms ({cfg.n_epochs} epochs x "
-                f"{cfg.num_minibatches} minibatches); iteration {dt:.3f} s; "
-                f"approx_kl {metrics['approx_kl']:.4e}, clip_fraction "
-                f"{metrics['clip_fraction']:.4f}, loss {metrics['loss']:.4f}, "
-                f"mean_reward {metrics['mean_reward']:.4f}; Newton launches "
-                f"{counts}; largest param change {moved:.3e}")
     finally:
         if saved is None:
             os.environ.pop("QTPU_GRAM", None)
@@ -760,6 +815,196 @@ def phase_reference(env_gpu, seed):
     return worst
 
 
+def breadth_configs():
+    """The per-option configurations of the breadth phase: together every
+    Go1Config option of the reference but collision_mode="plane"."""
+    from quadruped_tpu_torch.env.config import (DomainRandomization, Go1Config,
+                                                RewardWeights)
+
+    return {
+        "biped": Go1Config(ctrl_type="torque", biped=True,
+                           contact_pools=(8, 28, 12)),
+        "go2": Go1Config(robot="go2", ctrl_type="position",
+                         action_mode="centered"),
+        "terrain": Go1Config(ctrl_type="position", terrain="rough",
+                             terrain_amplitude=0.04, gait_conditioning=True),
+        # DR with latency, and cli/train.py's "shaped" profile with the
+        # three anti-standing levers on, as its make_env builds it
+        "levers": Go1Config(
+            ctrl_type="position",
+            dr=DomainRandomization(enabled=True, max_latency_steps=2),
+            reward_floor=False, accel_cost_mode="plain",
+            rewards=RewardWeights(recovery=0.0, get_up=0.0),
+            fallen_start_prob=0.0, command_speed_floor=0.2,
+            stand_still_cost=1.0, stand_still_mode="velocity",
+            feet_airtime_bootstrap=0.5),
+    }
+
+
+def to_device(state, dev):
+    return type(state)(**{
+        k: ({n: t.to(dev) for n, t in v.items()} if k == "params" else v.to(dev))
+        for k, v in vars(state).items()
+    })
+
+
+def reference_autoreset(env_gpu, seed, label):
+    """One step_autoreset on the card (kernel) against the plain path on
+    the CPU, same config, from the same near-keyframe states (on the drawn
+    ground, with the CPU reset's params: terrain, randomized params,
+    latencies, gaits) at B = 8, env 1 truncating into the same injected
+    reset state (fresh=): qpos, qvel and obs within 1e-3 scaled, as
+    phase_reference holds the record path.  The reward is printed, not
+    held: the reference's "dynamic" acceleration cost divides qacc^2 by
+    |qvel| + 1e-6, which magnifies float32 rounding of near-rest joints."""
+    from quadruped_tpu_torch.env.go1 import Go1Env
+    from quadruped_tpu_torch.physics.terrain import height_normal
+
+    env_cpu = Go1Env(env_gpu.cfg, device="cpu")
+    B = 8
+    rng = np.random.default_rng(seed)
+    g = torch.Generator().manual_seed(seed)
+    st = env_cpu.reset(B, g)
+    fresh = env_cpu.reset(B, g, params=st.params, rand_power=st.rand_power)
+    qpos = torch.as_tensor(
+        (env_cpu.key_qpos + rng.normal(0, 0.01, (B, 19))).astype(np.float32))
+    if "terrain_amp" in st.params:
+        qpos[:, 2] += height_normal(st.params, qpos[:, :2])[0]
+    st.qpos = qpos
+    st.qvel = torch.as_tensor(rng.normal(0, 0.1, (B, 18)).astype(np.float32))
+    st.steps[1] = env_cpu.cfg.max_episode_steps - 1
+    action = torch.as_tensor(rng.uniform(-1, 1, (B, 12)).astype(np.float32))
+    out_c = env_cpu.step_autoreset(st, action, fresh=fresh)
+    out_g = env_gpu.step_autoreset(to_device(st, "cuda"), action.cuda(),
+                                   fresh=to_device(fresh, "cuda"))
+    if not (bool(out_c[4][1]) and bool(out_g[4][1])):
+        raise RuntimeError(f"reference step ({label}): env 1 did not truncate")
+    errs = {name: scaled_err(g_.cpu(), c).max().item()
+            for name, c, g_ in (("qpos", out_c[0].qpos, out_g[0].qpos),
+                                ("qvel", out_c[0].qvel, out_g[0].qvel),
+                                ("obs", out_c[1], out_g[1]))}
+    worst = max(errs.values())
+    rew = scaled_err(out_g[2][:, None].cpu(), out_c[2][:, None]).max().item()
+    log(f"breadth reference step [{label}] (B={B}, step_autoreset, env 1 "
+        f"reset): max scaled err card vs CPU "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (reward, not held: {rew:.3e})")
+    if not worst <= 1e-3:
+        raise RuntimeError(f"card vs CPU control step ({label}): {worst:.3e} > 1e-3")
+    return errs
+
+
+def run_option(name, cfg, dev, B, seed, warm=3, steps=5):
+    """One configuration's control step at full width through its entry
+    points (policy.sample -> Go1Env.step_autoreset), warm-up steps then
+    timed ones, the launch counts zeroed just before the timed steps and
+    read just after: finite obs and reward of the env's width, exactly
+    frame_skip vpu launches per control step and no mxu one."""
+    from quadruped_tpu_torch.env.go1 import Go1Env
+    from quadruped_tpu_torch.models.actor_critic import ActorCritic
+    from quadruped_tpu_torch.ops import newton as N
+
+    env = Go1Env(cfg, device=dev)
+    policy = ActorCritic(obs_dim=env.obs_dim, act_dim=env.nu, device=dev,
+                         generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = env.reset(B, gen)
+    obs = env.obs(state)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+
+    def control_step(state, obs):
+        nonlocal finite
+        action, *_ = policy.sample(obs, gen)
+        state, obs, reward, *_ = env.step_autoreset(state, action, gen)
+        finite &= torch.isfinite(obs).all() & torch.isfinite(reward).all()
+        return state, obs
+
+    for _ in range(warm):
+        state, obs = control_step(state, obs)
+    torch.cuda.synchronize()
+    for m in MODES:
+        N.newton_solve.launches[m] = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, obs = control_step(state, obs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(N.newton_solve.launches)
+    if not bool(finite):
+        raise RuntimeError(f"non-finite obs or reward ({name})")
+    if tuple(obs.shape) != (B, env.obs_dim):
+        raise RuntimeError(f"obs shape {tuple(obs.shape)} ({name})")
+    expect = {"vpu": env.cfg.frame_skip * steps, "mxu": 0}
+    if counts != expect:
+        raise RuntimeError(f"{name}: Newton kernel launched {counts}, expected {expect}")
+    row = {"env_steps_per_s": B * steps / dt, "launches": counts,
+           "obs_dim": env.obs_dim, "iterations": env.m.opt.iterations,
+           "candidates": env.pipeline.table.ncand,
+           "slots": "pools " + str(env.cfg.contact_pools)
+           if env.cfg.contact_pools else f"{env.cfg.max_contacts} uniform"}
+    log(f"breadth [{name}]: {steps} timed control steps x {B} envs in "
+        f"{dt:.4f} s: {B * steps / dt:.1f} env control steps/s; obs "
+        f"{env.obs_dim}; {row['candidates']} candidates, {row['slots']} "
+        f"slots, {row['iterations']} Newton iterations; Newton launches "
+        f"{counts} ({counts['vpu'] / steps:g} per control step)")
+    return env, state, row
+
+
+def kernel_set(name, env, state, seed, report):
+    """The kernel in both modes against its plain version on a path's
+    states (check_kernel_set), at the env's own Newton iterations, then
+    timed there with its bound."""
+    its = env.m.opt.iterations
+    B = state.qpos.shape[0]
+    args, kw = solver_inputs(env, state.qpos, state.qvel,
+                             torch.zeros((B, env.nu), device=state.qpos.device),
+                             state.params)
+    errs = check_kernel_set(name, args, kw, its, seed)
+    t = time_kernel(args, kw, its)
+    log_timing(name, B, its, t)
+    flops_all, gram_all, bytes_all = newton_counts(args, kw, its, active_only=False)
+    t["bound_ms_every_slot"] = bound_ms(flops_all, gram_all, bytes_all, "vpu")[0]
+    log(f"kernel timing [{name}]: counting every slot, {flops_all / 1e9:.3f} "
+        f"GFLOP, {bytes_all / 1e6:.2f} MB, bound {t['bound_ms_every_slot']:.4f} ms")
+    report[name] = {"iterations": its, "errors": errs, "timing": t}
+
+
+def phase_breadth(dev, B, seed):
+    """(a) The training CLI's default env, Go1Config(ctrl_type="position")
+    with every other field at its default (full table, 48 uniform 6-row
+    slots, the model's 15 Newton iterations, full reward profile): PPO.init
+    and one train_iteration at PPOConfig() with QTPU_GRAM unset, 320 vpu
+    launches and no mxu one; its states after the iteration as a kernel
+    input set.  (b) Each other option at B envs (breadth_configs), 3
+    warm-up and 5 timed control steps, and one step_autoreset on the card
+    against the CPU; the Go2 and terrain runs' states as kernel input
+    sets (a new model; contact normals that are not vertical)."""
+    from quadruped_tpu_torch.env.config import Go1Config
+    from quadruped_tpu_torch.env.go1 import Go1Env
+    from quadruped_tpu_torch.learn.ppo import PPO, PPOConfig
+
+    if os.environ.get("QTPU_GRAM") is not None:
+        raise RuntimeError("QTPU_GRAM must be unset for the breadth phase")
+    out = {"kernel_sets": {}, "options": {}, "reference": {}}
+    env = Go1Env(Go1Config(ctrl_type="position"), device=dev)
+    trainer = PPO(env, PPOConfig())
+    ts = trainer.init(seed)
+    torch.cuda.synchronize()
+    ts, out["cli_train"] = train_iteration(
+        trainer, ts, "vpu", "breadth cli-default train iteration")
+    out["reference"]["cli"] = reference_autoreset(env, seed, "cli")
+    kernel_set("cli_uniform", env, ts.env_state, seed, out["kernel_sets"])
+    del trainer, ts, env
+    for name, cfg in breadth_configs().items():
+        env, state, row = run_option(name, cfg, dev, B, seed)
+        out["options"][name] = row
+        out["reference"][name] = reference_autoreset(env, seed, name)
+        if name in ("go2", "terrain"):
+            kernel_set(name, env, state, seed, out["kernel_sets"])
+        del env, state
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--envs", type=int, default=4096)
@@ -807,10 +1052,19 @@ def main() -> int:
     # 5. training, then the small reference update
     trep = phase_train(env, dev, args.seed)
     trep.update(phase_train_reference(args.seed))
+    del env, policy
+    # 6. every other env option, the training CLI's default env first
+    brep = phase_breadth(dev, args.envs, args.seed)
 
-    # 6. report
+    # 7. report
+    sets = ["reset", "after_steps", "stiff", *brep["kernel_sets"]]
     over = ("envs whose float32 solve is stable (noise floor <= 1e-4), "
-            "2 Newton iterations, qacc and qfrc")
+            "2 Newton iterations, qacc and qfrc, over the input sets "
+            + ", ".join(sets))
+    by_path = {"breadth cli-default train iteration (QTPU_GRAM unset, "
+               "32 control steps)": brep["cli_train"]["launches"]}
+    by_path.update({f"breadth {name}: 5 timed control steps, QTPU_GRAM unset":
+                    row["launches"] for name, row in brep["options"].items()})
     kernels = []
     for mode, name, launches, launches_over in (
         ("vpu", "newton_solve", mrep["launches"],
@@ -819,6 +1073,8 @@ def main() -> int:
          "train phase: the QTPU_GRAM=mxu train_iteration (32 control steps)"),
     ):
         r = krep[mode]
+        r["max_abs_err"] = max([r["max_abs_err"]] + [
+            ks["errors"][mode]["max_abs_err"] for ks in brep["kernel_sets"].values()])
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -827,6 +1083,7 @@ def main() -> int:
                         + (' (gram_mode="mxu")' if mode == "mxu" else ""),
             "launches": launches,
             "launches_over": launches_over,
+            "launches_by_path": {k: v[mode] for k, v in by_path.items()},
             "max_abs_err": r["max_abs_err"],
             "max_abs_err_over": over,
             "ms": r["ms"],
@@ -845,6 +1102,7 @@ def main() -> int:
                                        "max_abs_err")}
                    for mode in MODES},
         "train": trep,
+        "breadth": brep,
     }))
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())

@@ -1,4 +1,6 @@
-"""Bundled robot assets (defaults-resolved RawSpec JSON)."""
+"""Bundled robot assets (defaults-resolved RawSpec JSON), the port's copy
+of quadruped_tpu/assets' scenes: go1 and go2, each with torque motors or
+position servos (the reference's `scene_{ctrl_type}.xml` selection)."""
 
 from pathlib import Path
 
@@ -8,14 +10,11 @@ _DIR = Path(__file__).parent
 
 
 def robot_spec(robot: str = "go1", ctrl_type: str = "torque") -> RawSpec:
-    """Load a bundled robot scene spec.  This slice ships the Go1 torque
-    scene only; the other robots and the position-servo scenes come with
-    the environment-breadth slice."""
-    if (robot, ctrl_type) != ("go1", "torque"):
-        raise NotImplementedError(
-            f"robot={robot!r} ctrl_type={ctrl_type!r}: only go1/torque is "
-            "ported"
-        )
+    """Load a bundled robot scene spec."""
+    if robot not in ("go1", "go2"):
+        raise ValueError(f"unknown robot: {robot}")
+    if ctrl_type not in ("torque", "position"):
+        raise ValueError(f"unknown ctrl_type: {ctrl_type}")
     return RawSpec.from_json((_DIR / f"{robot}_{ctrl_type}.json").read_text())
 
 

@@ -13,11 +13,16 @@ the original Gymnasium env (go1_mujoco_env.py):
   * collision_cost is a Frobenius norm over all contact bodies (0/1)
   * body kinematics and cfrc in rewards are pre-integration values of the
     final substep, obs and velocity rewards use post-integration qpos/qvel
-  * reward floored at zero: max(0, rewards - costs)
+  * reward floored at zero: max(0, rewards - costs), unless reward_floor
+    is off
 
-This slice ports the configuration of record: Go1, torque control, flat
-floor, full collision table, default rewards.  Every other option raises
-NotImplementedError in Go1Env.__init__.
+Every Go1Config option of the reference runs: go1 and go2, torque motors
+and position servos, raw and centered actions, biped mode, rough terrain,
+gait conditioning, domain randomization with actuator latency, and the
+train-time reward levers.  One does not: collision_mode="plane" (the
+floor-only table, which the reference solves without its kernel) raises
+NotImplementedError in Go1Env.__init__, except in biped mode, which maps
+it to "full" as the reference does.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from .. import resolve_device
 from ..physics.consts import cached
 from ..physics.forward import Pipeline, step_n
 from ..physics.math import axis_angle_to_quat, euler_from_quat, norm
+from ..physics.terrain import height_normal, sample_terrain_params
 from ..timing import TIMER
 from .config import Go1Config
 
@@ -45,6 +51,14 @@ TERM_NOT_FINITE = 1
 TERM_Z = 2
 TERM_ROLL = 3
 TERM_PITCH = 4
+
+# stance sets during the first half of the gait cycle, feet ordered (FR,
+# FL, RR, RL); the other pair takes the second half (go1.py:523-532)
+GAIT_STANCE = (
+    (1, 0, 0, 1),   # trot: diagonal pairs
+    (1, 0, 1, 0),   # pace: lateral pairs (right side first)
+    (1, 1, 0, 0),   # bound: front pair then rear pair
+)
 
 
 @dataclasses.dataclass
@@ -86,41 +100,18 @@ class EnvState:
         return EnvState(**out)
 
 
-def _unsupported(cfg: Go1Config) -> list[str]:
-    """Config values this slice does not implement."""
-    d = Go1Config()
-    bad = []
-    checks = [
-        ("robot", cfg.robot == "go1"),
-        ("ctrl_type", cfg.ctrl_type == "torque"),
-        ("biped", not cfg.biped),
-        ("terrain", cfg.terrain == "flat"),
-        ("gait_conditioning", not cfg.gait_conditioning),
-        ("dr.enabled", not cfg.dr.enabled),
-        ("dr.max_latency_steps", cfg.dr.max_latency_steps == 0),
-        ("action_mode", cfg.action_mode == "raw"),
-        ("collision_mode", cfg.collision_mode == "full"),
-        ("reward_floor", cfg.reward_floor == d.reward_floor),
-        ("accel_cost_mode", cfg.accel_cost_mode == d.accel_cost_mode),
-        ("command_speed_floor", cfg.command_speed_floor == d.command_speed_floor),
-        ("stand_still_cost", cfg.stand_still_cost == d.stand_still_cost),
-        ("feet_airtime_bootstrap",
-         cfg.feet_airtime_bootstrap == d.feet_airtime_bootstrap),
-    ]
-    for name, ok in checks:
-        if not ok:
-            bad.append(name)
-    return bad
-
-
 class Go1Env:
     """Batched env: compiled pipeline + config + derived constants."""
 
     def __init__(self, cfg: Go1Config, device="cuda"):
-        bad = _unsupported(cfg)
-        if bad:
+        mode = cfg.collision_mode
+        if cfg.biped and mode == "plane":
+            mode = "full"  # self-collision costs need self pairs
+        if mode != "full":
             raise NotImplementedError(
-                f"Go1Config options not ported in this slice: {bad}"
+                f"collision_mode={cfg.collision_mode!r} is not ported: the "
+                "reference solves its floor-only table without the Newton "
+                "kernel (physics/solver.py:311-316)"
             )
         from ..assets import robot_model
 
@@ -147,18 +138,54 @@ class Go1Env:
             raise ValueError("body order differs from the Go1 model's")
         self.key_qpos = m.key_qpos[0].copy()
         # reference quirk: default joint position = key_ctrl (zeros for the
-        # torque model), go1_mujoco_env.py:105
+        # torque model, the home pose for position), go1_mujoco_env.py:105
         self.default_joint_position = m.key_ctrl[0].copy()
         r = m.actuator_ctrlrange
         off = 0.5 * (1 - cfg.soft_joint_factor) * (r[:, 1] - r[:, 0])
         self.soft_joint_range = np.stack([r[:, 0] + off, r[:, 1] - off], axis=1)
         self.jnt_range_hinges = m.jnt_range[1:, :].copy()
+
+        # biped-term entities, go1_mujoco_env.py:155-164
+        feet_sites = [m.site_names.index(s) for s in ("FR", "FL", "RR", "RL")]
+        self.front_feet_sites = feet_sites[:2]
+        self.front_knee_bodies = [m.name2id("body", n) for n in ("FR_calf", "FL_calf")]
+        self.rear_hip_bodies = [m.name2id("body", n) for n in ("RR_hip", "RL_hip")]
+        self.front_hip_bodies = [m.name2id("body", n) for n in ("FR_hip", "FL_hip")]
+        self.unwanted_contact_bodies = [
+            m.name2id("body", n)
+            for n in ("trunk", "FR_thigh", "FL_thigh", "RR_thigh", "RL_thigh",
+                      "FR_calf", "FL_calf")
+        ]
+        # self-collision candidates (biped): pairs between the two front
+        # legs or the two rear legs, go1_mujoco_env.py:202-217
+        lay = self.pipeline.layout
+
+        def limb(*names):
+            return {m.name2id("body", n) for n in names}
+
+        def pair_mask(a, b):
+            return np.array([(x in a and y in b) or (x in b and y in a)
+                             for x, y in zip(lay.con_body1, lay.con_body2)])
+
+        legs = {s: limb(f"{s}_hip", f"{s}_thigh", f"{s}_calf")
+                for s in ("FR", "FL", "RR", "RL")}
+        self.self_collision_mask = (pair_mask(legs["FR"], legs["FL"])
+                                    | pair_mask(legs["RR"], legs["RL"]))
+
         self.gravity_vec = m.opt.gravity.copy()
         self.nu = m.nu
-        self.obs_dim = 48
+        # 48 (go1_mujoco_env.py:151-153) + gait one-hot and clock
+        self.obs_dim = 48 + (5 if cfg.gait_conditioning else 0)
 
     def _const(self, name, make, dtype=torch.float32):
         return cached(self, name, make, self.device, dtype)
+
+    def nominal_params(self, num_envs: int) -> dict[str, torch.Tensor]:
+        """The model's params for num_envs envs (views of one copy)."""
+        return {
+            k: self._const(f"param_{k}", lambda v=v: v).expand(num_envs, *v.shape)
+            for k, v in self.m.params().items()
+        }
 
     # ------------------------------------------------------------------ reset
 
@@ -171,10 +198,7 @@ class Go1Env:
         cfg, dev, f32 = self.cfg, self.device, torch.float32
         B = num_envs
         if params is None:
-            params = {
-                k: self._const(f"param_{k}", lambda v=v: v).expand(B, *v.shape)
-                for k, v in self.m.params().items()
-            }
+            params = self.nominal_params(B)
         if rand_power is None:
             rand_power = cfg.rand_power
         rp = torch.as_tensor(rand_power, dtype=f32, device=dev).expand(B)
@@ -182,6 +206,10 @@ class Go1Env:
         def uniform(shape, lo, hi):
             u = torch.rand(shape, generator=generator, device=dev, dtype=f32)
             return lo + (hi - lo) * u
+
+        def randint(hi):
+            return torch.randint(0, hi, (B,), generator=generator, device=dev,
+                                 dtype=torch.int32)
 
         qpos = self._const("key_qpos", lambda: self.key_qpos).expand(B, -1).clone()
         # 20%: fallen start (roll or pitch 85-120 deg, z = 0.1)
@@ -193,20 +221,55 @@ class Go1Env:
         fall_q = torch.where(uniform((B, 1), 0.0, 1.0) < 0.5, roll_q, pitch_q)
         fallen = uniform((B,), 0.0, 1.0) < cfg.fallen_start_prob
 
-        joints = qpos[:, 7:]
+        if cfg.biped:
+            # the ready pose: joints, height and pitch (go1.py:202-206)
+            half = 0.5 * math.radians(cfg.biped_ready_pitch_deg)
+            alt_joints = self._const("biped_joints", lambda: cfg.biped_ready_joints)
+            alt_z = torch.full_like(qpos[:, 2], cfg.biped_ready_height)
+            alt_q = self._const(
+                "biped_quat", lambda: [math.cos(half), 0.0, math.sin(half), 0.0])
+        else:
+            alt_joints, alt_z, alt_q = qpos[:, 7:], qpos[:, 2], qpos[:, 3:7]
+        joints = torch.where(fallen[:, None], qpos[:, 7:], alt_joints)
         noise = torch.randn((B, 12), generator=generator, device=dev, dtype=f32)
         joints = torch.clamp(
             joints + noise * (0.1 * rp[:, None]),
             self._const("jlo", lambda: self.jnt_range_hinges[:, 0]),
             self._const("jhi", lambda: self.jnt_range_hinges[:, 1]),
         )
-        qpos[:, 2] = torch.where(fallen, torch.full_like(qpos[:, 2], 0.1), qpos[:, 2])
-        qpos[:, 3:7] = torch.where(fallen[:, None], fall_q, qpos[:, 3:7])
+        qpos[:, 2] = torch.where(fallen, torch.full_like(alt_z, 0.1), alt_z)
+        qpos[:, 3:7] = torch.where(fallen[:, None], fall_q, alt_q)
         qpos[:, 7:] = joints
         desired = uniform(
             (B, 3), self._const("vmin", lambda: cfg.desired_vel_min),
             self._const("vmax", lambda: cfg.desired_vel_max),
         )
+        if cfg.command_speed_floor > 0:
+            # anti-standing lever: the x command's magnitude U(0, hi)
+            # remapped to U(floor, hi), its sign kept (go1.py:233-243)
+            hi = abs(cfg.desired_vel_max[0])
+            lo = cfg.command_speed_floor
+            d0 = desired[:, 0]
+            sign = torch.where(d0 >= 0, 1.0, -1.0).to(f32)
+            desired[:, 0] = sign * (lo + (d0.abs() / hi) * (hi - lo))
+
+        if cfg.dr.enabled:
+            # from the NOMINAL params, never the episode's own: the factors
+            # must not compound over resets (go1.py:250-257)
+            params = self._randomize(B, generator)
+        if cfg.terrain == "rough":
+            # a fresh field every episode; the spawn height rides it
+            params = dict(params)
+            params.update(sample_terrain_params(
+                B, generator, cfg.terrain_waves, cfg.terrain_amplitude,
+                cfg.terrain_wavelength, device=dev, dtype=f32,
+            ))
+            h0, _ = height_normal(params, qpos[:, :2])
+            qpos[:, 2] = qpos[:, 2] + h0
+        zeros_i = torch.zeros((B,), dtype=torch.int32, device=dev)
+        latency = (randint(cfg.dr.max_latency_steps + 1)
+                   if cfg.dr.enabled and cfg.dr.max_latency_steps > 0 else zeros_i)
+        gait = randint(3) if cfg.gait_conditioning else zeros_i
 
         def zeros(*shape, dtype=f32):
             return torch.zeros((B, *shape), dtype=dtype, device=dev)
@@ -227,10 +290,35 @@ class Go1Env:
             rand_power=rp.clone(),
             qacc_warm=zeros(self.m.nv),
             action_buf=zeros(cfg.dr.max_latency_steps + 1, 12),
-            latency=zeros(dtype=torch.int32),
-            gait=zeros(dtype=torch.int32),
+            latency=latency,
+            gait=gait,
             gait_phase=zeros(),
         )
+
+    def _randomize(self, num_envs: int, generator) -> dict[str, torch.Tensor]:
+        """Per-env multiplicative factors on the nominal params
+        (go1.py:309-321): friction, mass and inertia (one draw for both),
+        servo gain, damping.  geom_friction is scaled as in the reference,
+        and as there no physics reads it: contact friction comes from the
+        static collision table (collision.py:_combine_pair)."""
+        dr = self.cfg.dr
+        params = self.nominal_params(num_envs)
+
+        def factor(r):
+            u = torch.rand((num_envs,), generator=generator, device=self.device)
+            return r[0] + (r[1] - r[0]) * u
+
+        def scale(v, f):
+            return v * f.reshape((-1,) + (1,) * (v.dim() - 1))
+
+        friction, mass = factor(dr.friction_range), factor(dr.mass_range)
+        kp, damping = factor(dr.kp_range), factor(dr.damping_range)
+        params["geom_friction"] = scale(params["geom_friction"], friction)
+        params["body_mass"] = scale(params["body_mass"], mass)
+        params["body_inertia"] = scale(params["body_inertia"], mass)
+        params["actuator_kp"] = scale(params["actuator_kp"], kp)
+        params["dof_damping"] = scale(params["dof_damping"], damping)
+        return params
 
     # ------------------------------------------------------------------- obs
 
@@ -245,22 +333,27 @@ class Go1Env:
         return torch.where(n == 0, pg, pg / torch.where(n == 0, torch.ones_like(n), n))
 
     def obs(self, state: EnvState) -> torch.Tensor:
-        """48-dim observation (go1_mujoco_env.py:915-947)."""
+        """48-dim observation (go1_mujoco_env.py:915-947); with gait
+        conditioning 53: the gait's one-hot, then sin and cos of the
+        shared gait clock."""
         cfg = self.cfg
         qpos, qvel = state.qpos, state.qvel
         key = self._const("key_qpos", lambda: self.key_qpos)
-        o = torch.cat(
-            [
-                qvel[:, :3] * cfg.obs_scale_lin_vel,
-                qvel[:, 3:6] * cfg.obs_scale_ang_vel,
-                self._projected_gravity(qpos),
-                state.desired_vel * cfg.obs_scale_lin_vel,
-                (qpos[:, 7:] - key[7:]) * cfg.obs_scale_dof_pos,
-                qvel[:, 6:] * cfg.obs_scale_dof_vel,
-                state.last_action,
-            ],
-            dim=-1,
-        )
+        parts = [
+            qvel[:, :3] * cfg.obs_scale_lin_vel,
+            qvel[:, 3:6] * cfg.obs_scale_ang_vel,
+            self._projected_gravity(qpos),
+            state.desired_vel * cfg.obs_scale_lin_vel,
+            (qpos[:, 7:] - key[7:]) * cfg.obs_scale_dof_pos,
+            qvel[:, 6:] * cfg.obs_scale_dof_vel,
+            state.last_action,
+        ]
+        if cfg.gait_conditioning:
+            ph = 2.0 * math.pi * state.gait_phase
+            gaits = self._const("gaits", lambda: np.arange(3), torch.int32)
+            parts += [(state.gait[:, None] == gaits).to(qpos.dtype),
+                      torch.sin(ph)[:, None], torch.cos(ph)[:, None]]
+        o = torch.cat(parts, dim=-1)
         return torch.clamp(o, -cfg.clip_obs, cfg.clip_obs)
 
     # ----------------------------------------------------------------- health
@@ -303,16 +396,36 @@ class Go1Env:
         cfg = self.cfg
         dtype = state.qpos.dtype
         action = action.to(dtype)
+        with TIMER.phase("env"):
+            # biped: the front feet's touch from the previous step's
+            # forces, before the simulation (go1.py:413-419)
+            front_touched = state.front_feet_touched
+            if cfg.biped:
+                front_touched = front_touched | (state.last_feet_forces[:, :2] > 1.0).any(-1)
+            # actuator latency: the physics sees the action from `latency`
+            # control steps ago (go1.py:421-429)
+            action_buf = state.action_buf
+            applied = action
+            if cfg.dr.max_latency_steps > 0:
+                action_buf = torch.cat([action[:, None], action_buf[:, :-1]], dim=1)
+                bidx = torch.arange(action.shape[0], device=action.device)
+                applied = action_buf[bidx, state.latency.long()]
+            # centered actions: ctrl re-based at the home keyframe; reward,
+            # obs and last_action still see the policy action
+            ctrl = applied
+            if cfg.action_mode == "centered":
+                djp = self._const("default_jpos", lambda: self.default_joint_position)
+                ctrl = djp + cfg.action_scale * applied
         qpos, qvel, data = step_n(
-            self.pipeline, state.params, state.qpos, state.qvel, action,
+            self.pipeline, state.params, state.qpos, state.qvel, ctrl,
             cfg.frame_skip, warmstart=state.qacc_warm,
         )
         with TIMER.phase("env"):
-            return self._finish(state, action, qpos, qvel, data)
+            return self._finish(state, action, qpos, qvel, data, front_touched,
+                                action_buf)
 
-    def _finish(self, state, action, qpos, qvel, data):
+    def _finish(self, state, action, qpos, qvel, data, front_touched, action_buf):
         cfg = self.cfg
-        dtype = qpos.dtype
         steps = state.steps + 1
         healthy, reason = self._health(qpos, qvel)
         feet = self._const("feet", lambda: FEET_BODIES, None)
@@ -329,6 +442,8 @@ class Go1Env:
         finite = torch.isfinite(qpos).all(-1) & torch.isfinite(qvel).all(-1)
         terminated = (time_unhealthy > cfg.max_unhealthy_time) | ~finite
         truncated = steps >= cfg.max_episode_steps
+        bipedal_success = (truncated & ~front_touched if cfg.biped
+                           else torch.zeros_like(truncated))
         info = {
             "x_position": qpos[:, 0],
             "y_position": qpos[:, 1],
@@ -336,6 +451,7 @@ class Go1Env:
             "termination_reason": torch.where(
                 terminated | ~healthy, reason, torch.zeros_like(reason)
             ),
+            "bipedal_success": bipedal_success,
             "contact_overflow": data.con_overflow,
             **reward_info,
         }
@@ -353,8 +469,10 @@ class Go1Env:
             last_contacts=new_contacts,
             last_action=action,
             last_health_dev=new_dev,
+            front_feet_touched=front_touched,
             last_feet_forces=feet_forces,
             qacc_warm=data.qacc,
+            action_buf=action_buf,
         )
         # obs uses the PREVIOUS action (reference quirk)
         observation = self.obs(
@@ -369,6 +487,19 @@ class Go1Env:
         return new_state, observation, reward, terminated, truncated, info
 
     # ----------------------------------------------------------------- reward
+
+    def _gait_pattern_reward(self, state, curr_contact, moving_cmd, healthy):
+        """Command-conditioned gait shaping (go1.py:534-550): the share of
+        feet whose contact matches the commanded gait's stance template at
+        the pre-step clock phase, while commanded to move and healthy."""
+        dtype = state.gait_phase.dtype
+        tmpl = self._const("gait_stance", lambda: GAIT_STANCE)[state.gait.long()]
+        first_half = (state.gait_phase < 0.5)[:, None]
+        expected = torch.where(first_half, tmpl, 1.0 - tmpl)
+        match = (curr_contact.to(dtype) == expected).to(dtype)
+        r = torch.mean(match, dim=-1)
+        return torch.where(moving_cmd & healthy, r, torch.zeros_like(r)) * (
+            self.cfg.gait_reward_weight)
 
     def _reward(self, state, action, qpos, qvel, data, healthy, feet_forces):
         cfg = self.cfg
@@ -386,15 +517,31 @@ class Go1Env:
         angular_vel = torch.exp(-ang_err / cfg.tracking_sigma) * w.angular_vel_tracking
         healthy_r = torch.where(healthy, one, zero) * w.healthy
 
-        # feet air time (go1_mujoco_env.py:634-668)
+        # feet air time (go1_mujoco_env.py:634-668); biped: the rear feet's
+        # alternation bonus, air time and contacts left as they were
         curr_contact = feet_forces > 1.0
-        contact_filter = curr_contact | state.last_contacts
-        first_contact = (state.feet_air_time > 0.0) & contact_filter
-        air = state.feet_air_time + cfg.dt
-        over = torch.clamp(air - 0.2, min=0.0)
-        feet_air = torch.sum(over * over * first_contact.to(dtype), dim=-1)
-        feet_air = feet_air * moving_cmd.to(dtype) * w.feet_airtime
-        new_feet_air_time = air * (~contact_filter).to(dtype)
+        if cfg.biped:
+            alternating = curr_contact[:, 2] != curr_contact[:, 3]
+            feet_air = torch.where(alternating, one, zero) * w.feet_airtime
+            new_feet_air_time = state.feet_air_time
+            new_contacts = state.last_contacts
+        else:
+            contact_filter = curr_contact | state.last_contacts
+            new_contacts = curr_contact
+            first_contact = (state.feet_air_time > 0.0) & contact_filter
+            air = state.feet_air_time + cfg.dt
+            over = torch.clamp(air - 0.2, min=0.0)
+            feet_air = torch.sum(over * over * first_contact.to(dtype), dim=-1)
+            feet_air = feet_air * moving_cmd.to(dtype) * w.feet_airtime
+            if cfg.feet_airtime_bootstrap:
+                # anti-standing lever: a linear payment per touchdown after
+                # >= 0.1 s of air time (go1.py:585-596)
+                qualifying = (first_contact & (air >= 0.1)).sum(-1).to(dtype)
+                feet_air = feet_air + (
+                    qualifying * moving_cmd.to(dtype)
+                    * torch.where(healthy, one, zero) * cfg.feet_airtime_bootstrap
+                )
+            new_feet_air_time = air * (~contact_filter).to(dtype)
 
         # recovery (go1_mujoco_env.py:535-580)
         dev = self._health_deviation(qpos)
@@ -410,6 +557,11 @@ class Go1Env:
         get_up = get_up * w.get_up
 
         rewards = linear_vel + angular_vel + healthy_r + feet_air + recovery + get_up
+        gait_info = {}
+        if cfg.gait_conditioning and not cfg.biped:
+            gait_r = self._gait_pattern_reward(state, curr_contact, moving_cmd, healthy)
+            rewards = rewards + gait_r
+            gait_info = {"gait_pattern_reward": gait_r}
 
         # costs
         unhealthy_scale = torch.where(healthy, one, 0.1 * one)
@@ -426,26 +578,40 @@ class Go1Env:
         )
         joint_limit = torch.sum(out_of_range, dim=-1) * c.joint_limit
         joint_vel = torch.sum(qvel[:, 6:] ** 2, dim=-1) * c.joint_velocity
-        # reference "dynamic" accel cost (go1_mujoco_env.py:736-751)
-        accel = torch.sum(data.qacc[:, 6:] ** 2 / (qvel[:, 6:].abs() + 1e-6), dim=-1)
-        joint_accel = accel * unhealthy_scale * c.joint_acceleration
+        # accel cost: "dynamic" is the reference formula
+        # (go1_mujoco_env.py:736-751); "plain" and "off" are train-time
+        # shaping (go1.py:640-651)
+        if cfg.accel_cost_mode == "plain":
+            joint_accel = (torch.sum(data.qacc[:, 6:] ** 2, dim=-1)
+                           * unhealthy_scale * c.joint_acceleration_plain)
+        elif cfg.accel_cost_mode == "off":
+            joint_accel = zero
+        else:
+            accel = torch.sum(data.qacc[:, 6:] ** 2 / (qvel[:, 6:].abs() + 1e-6), dim=-1)
+            joint_accel = accel * unhealthy_scale * c.joint_acceleration
         # collision: Frobenius norm over the 8 contact bodies -> indicator
         cb = self._const("contact_bodies", lambda: CONTACT_BODIES, None)
         coll = (norm(data.cfrc_ext[:, cb].reshape(qpos.shape[0], -1)) > 0.1).to(dtype)
         coll = coll * c.collision
         unhealthy_cost = torch.where(healthy, zero, one) * c.unhealthy_state
-        orientation = torch.sum(pg[:, :2] ** 2, dim=-1) * c.orientation
-        djp = self._const("default_jpos", lambda: self.default_joint_position)
-        default_pos = torch.sum((qpos[:, 7:] - djp) ** 2, dim=-1) * c.default_joint_position
+        # anti-standing lever: a cost while commanded to move, healthy and
+        # standing, by all four feet in stance ("contact") or by the speed
+        # along the command below 30% of it ("velocity"), go1.py:658-676
+        if cfg.stand_still_mode == "velocity":
+            cmd_norm = torch.clamp(norm(des[:, :2]), min=1e-6)
+            proj = torch.sum(qvel[:, :2] * des[:, :2], dim=-1) / cmd_norm
+            ss_trigger = moving_cmd & healthy & (proj < 0.3 * cmd_norm)
+        else:
+            ss_trigger = moving_cmd & healthy & curr_contact.all(-1)
+        stand_still = torch.where(ss_trigger, one, zero) * cfg.stand_still_cost
 
         costs = (
             ctrl_cost + action_rate_cost + vertical + xy_ang + joint_limit
-            + joint_vel + joint_accel + coll + unhealthy_cost
-            + orientation + default_pos
+            + joint_vel + joint_accel + coll + unhealthy_cost + stand_still
         )
-        raw = rewards - costs
-        reward = torch.clamp(raw, min=0.0)   # go1_mujoco_env.py:911
+        # every channel, costs negative (go1.py:689-713)
         reward_info = {
+            **gait_info,
             "linear_vel_tracking_reward": linear_vel,
             "reward_ctrl": -ctrl_cost,
             "reward_survive": healthy_r,
@@ -461,11 +627,86 @@ class Go1Env:
             "joint_velocity_cost": -joint_vel,
             "joint_acceleration_cost": -joint_accel,
             "collision_cost": -coll,
-            "orientation_cost": -orientation,
-            "default_joint_position_cost": -default_pos,
-            "reward_raw": raw,
         }
-        return reward, reward_info, new_feet_air_time, curr_contact, new_dev
+        if cfg.stand_still_cost:
+            reward_info["stand_still_cost"] = -stand_still
+
+        if cfg.biped:
+            upright, biped_costs = self._biped_terms(qpos, data, feet_forces)
+            rewards = rewards + upright
+            for v in biped_costs.values():
+                costs = costs + v
+            reward_info["biped_upright_reward"] = upright
+            reward_info.update({k: -v for k, v in biped_costs.items()})
+        else:
+            orientation = torch.sum(pg[:, :2] ** 2, dim=-1) * c.orientation
+            djp = self._const("default_jpos", lambda: self.default_joint_position)
+            default_pos = torch.sum((qpos[:, 7:] - djp) ** 2, dim=-1) * c.default_joint_position
+            costs = costs + orientation + default_pos
+            reward_info["orientation_cost"] = -orientation
+            reward_info["default_joint_position_cost"] = -default_pos
+
+        raw = rewards - costs
+        # go1_mujoco_env.py:911; reward_floor=False is train-time shaping
+        reward = torch.clamp(raw, min=0.0) if cfg.reward_floor else raw
+        reward_info["reward_raw"] = raw
+        return reward, reward_info, new_feet_air_time, new_contacts, new_dev
+
+    def _biped_terms(self, qpos, data, feet_forces):
+        """(upright reward, {cost name: cost}) of biped mode
+        (go1.py:715-786), each cost positive, in the reference's order."""
+        cfg = self.cfg
+        bw = cfg.biped_weights
+        dtype = qpos.dtype
+        kin = data.kin
+
+        def idx(name, ids):
+            return self._const(name, lambda: ids, None)
+
+        upright = torch.clamp(kin.xmat[:, TRUNK, 2, 0], min=0.0) * bw.upright
+        front_forces = feet_forces[:, :2]
+        indicator = cfg.biped_contact_mode == "indicator"
+        if indicator:
+            # bounded train-time form: the count of loaded front feet
+            front_contact = (front_forces > 1.0).to(dtype).sum(-1) * (bw.front_contact / 10.0)
+        else:
+            front_contact = torch.sum(front_forces ** 2, dim=-1) * bw.front_contact
+        rear_airborne = torch.where(
+            (feet_forces[:, 2:] < 1.0).all(-1),
+            torch.full_like(front_contact, bw.rear_feet_airborne),
+            torch.zeros_like(front_contact),
+        )
+        feet_z = kin.site_xpos[:, idx("front_feet_sites", self.front_feet_sites), 2]
+        knees_z = kin.xpos[:, idx("front_knees", self.front_knee_bodies), 2]
+        front_foot_height = torch.sum(
+            torch.clamp(knees_z - feet_z, min=0.0), dim=-1) * bw.front_foot_height
+        rear_hips = kin.xpos[:, idx("rear_hips", self.rear_hip_bodies)]
+        crossed = torch.clamp(rear_hips[:, 0, 1] - rear_hips[:, 1, 1], min=0.0) * bw.crossed_legs
+        low_hips = torch.sum(
+            torch.clamp(0.2 - rear_hips[..., 2], min=0.0), dim=-1) * 10.0 * bw.low_rear_hips
+        front_hips_z = kin.xpos[:, idx("front_hips", self.front_hip_bodies), 2]
+        below_hips = torch.sum(
+            torch.clamp(front_hips_z - feet_z, min=0.0) ** 2, dim=-1) * bw.front_feet_below_hips
+        abduction = torch.sum(qpos[:, 7:][:, 0::3] ** 2, dim=-1) * bw.abduction_joints
+        unwanted_norms = norm(
+            data.cfrc_ext[:, idx("unwanted_bodies", self.unwanted_contact_bodies)])
+        if indicator:
+            unwanted = (unwanted_norms > 1.0).to(dtype).sum(-1) * (bw.unwanted_contact / 10.0)
+        else:
+            unwanted = torch.sum(unwanted_norms ** 2, dim=-1) * bw.unwanted_contact
+        self_mask = self._const("self_mask", lambda: self.self_collision_mask, None)
+        selfc = (data.con_active & self_mask[data.con_sel]).sum(-1).to(dtype) * bw.self_collision
+        return upright, {
+            "biped_front_contact_cost": front_contact,
+            "biped_rear_feet_airborne_cost": rear_airborne,
+            "biped_front_foot_height_cost": front_foot_height,
+            "biped_crossed_legs_cost": crossed,
+            "biped_low_rear_hips_cost": low_hips,
+            "biped_front_feet_below_hips_cost": below_hips,
+            "biped_abduction_joints_cost": abduction,
+            "biped_unwanted_contact_cost": unwanted,
+            "self_collision_cost": selfc,
+        }
 
     # -------------------------------------------------------------- autoreset
 

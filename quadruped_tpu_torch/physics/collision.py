@@ -12,10 +12,11 @@ Pair parameters combine as in MuJoCo: the higher-priority geom wins; on
 equal priority condim = max, friction = elementwise max, solref/solimp =
 solmix-weighted mean, margin/gap = sum.
 
-This slice runs the flat floor only: plane contacts use the world plane
-(the rough-terrain local plane comes with the terrain slice).  Known
-deviation kept from the reference: cylinders act as capsules against
-non-plane geoms except where refine_cylinder_slots refines them.
+Plane contacts use the world plane, or on rough terrain the local
+tangent plane of the heightfield under the moving geom's centre
+(physics/terrain.py).  Known deviation kept from the reference: cylinders
+act as capsules against non-plane geoms except where
+refine_cylinder_slots refines them.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from ..mjcf.model import (
 )
 from .consts import cached, index
 from .math import cross, norm
+from .terrain import local_plane
 
 _MJMINVAL = 1e-15
 
@@ -462,7 +464,7 @@ def _capsule_box(cpos, cmat, r, half, bpos, bmat, size):
     )
 
 
-def narrowphase(m: PhysicsModel, table: CollisionTable, kin,
+def narrowphase(m: PhysicsModel, table: CollisionTable, kin, terrain=None,
                 defer_cyl: bool = False):
     """All groups for a batch; returns per-candidate (dist (B, ncand),
     pos (B, ncand, 3), normal (B, ncand, 3)) in table order.
@@ -470,6 +472,11 @@ def narrowphase(m: PhysicsModel, table: CollisionTable, kin,
     This is the reference's frames="normal" mode, the one its top-K
     paths use: contact frames are built afterwards for the selected slots
     only (frame_from_normal).
+
+    terrain: the heightfield's params (physics/terrain.py), or None for
+    the flat world plane.  With it, every plane-group pair collides
+    against the local tangent plane under the moving geom's centre;
+    zero amplitudes give exactly the flat plane's results.
 
     defer_cyl: return the capsule-capsule approximation for
     capsule_cylinder/cylinder_cylinder pairs and leave the refinement to
@@ -487,7 +494,10 @@ def narrowphase(m: PhysicsModel, table: CollisionTable, kin,
         i2 = index(table, f"g{gi}_geom2", lambda: g.geom2, dev)
         s1, s2 = size[i1], size[i2]
         if g.kind.startswith("plane_"):
-            n, pp = gm[:, i1][..., :, 2], gx[:, i1]
+            if terrain is None:
+                n, pp = gm[:, i1][..., :, 2], gx[:, i1]
+            else:
+                pp, n = local_plane(terrain, gx[:, i2])
         if g.kind == "plane_sphere":
             d, p, nn = _plane_sphere(n, pp, gx[:, i2], s2[:, 0])
         elif g.kind == "plane_capsule":

@@ -324,8 +324,11 @@ def _gather_rows(x, idx):
 
 def assemble(
     m: PhysicsModel, layout: EfcLayout, table: CollisionTable, kin: Kin,
-    qpos: torch.Tensor, qvel: torch.Tensor,
+    qpos: torch.Tensor, qvel: torch.Tensor, terrain=None,
 ) -> Efc:
+    """The constraint rows of a batch at (qpos, qvel); `terrain` (the
+    heightfield's params, physics/terrain.py) moves the plane contacts
+    onto the local tangent planes."""
     dtype, dev = qvel.dtype, qvel.device
     B = qvel.shape[0]
     impratio = float(m.opt.impratio)
@@ -402,7 +405,7 @@ def assemble(
             "pooled or uniform slot layout"
         )
     dist_all, pos_all, nrm_all = narrowphase(
-        m, table, kin, defer_cyl=layout.defer_cyl
+        m, table, kin, terrain=terrain, defer_cyl=layout.defer_cyl
     )
     incm_all = const("incm", lambda: layout.con_includemargin)
     act_all = dist_all < incm_all

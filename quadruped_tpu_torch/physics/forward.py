@@ -31,6 +31,7 @@ from .kinematics import Kin, fk, tree_levels
 from .math import chol_factor, chol_solve, cross, quat_integrate
 from .smooth import smooth_dynamics
 from .solver import solve
+from .terrain import terrain_of
 
 
 @dataclasses.dataclass(eq=False)
@@ -82,7 +83,9 @@ def forward(
     qvel: torch.Tensor, ctrl: torch.Tensor,
     warmstart: torch.Tensor | None = None,
 ):
-    """Forward dynamics at (qpos, qvel, ctrl).  Returns (StepData, M)."""
+    """Forward dynamics at (qpos, qvel, ctrl).  Returns (StepData, M).
+    Plane contacts collide with the heightfield when params hold one
+    (physics/terrain.py), as in the reference (forward.py:120-129)."""
     m = pl.m
     with TIMER.phase("fk"):
         kin = fk(m, qpos, qvel)
@@ -91,7 +94,8 @@ def forward(
             m, params, kin, qpos, qvel, ctrl
         )
     with TIMER.phase("assemble"):
-        efc = assemble(m, pl.layout, pl.table, kin, qpos, qvel)
+        efc = assemble(m, pl.layout, pl.table, kin, qpos, qvel,
+                       terrain=terrain_of(params))
     with TIMER.phase("solve"):
         qacc, _qfrc_constraint, con_force = solve(
             m, M, qacc_smooth, efc, warmstart=warmstart

@@ -1,5 +1,5 @@
 """Smooth (constraint-free) dynamics, batch-first: CRBA mass matrix, RNEA
-bias forces, passive forces and motor actuation.
+bias forces, passive forces, and motor and position-servo actuation.
 
 Counterpart of quadruped_tpu/physics/smooth.py, in the same absolute
 Plücker coordinates (kinematics.fk), with every tree recursion flattened
@@ -90,19 +90,33 @@ def actuator_force(
     m: PhysicsModel, params, qpos: torch.Tensor, qvel: torch.Tensor,
     ctrl: torch.Tensor,
 ) -> torch.Tensor:
-    """qfrc_actuator of motor actuators: force = gear * clamp(ctrl)
-    (go1_torque.xml:216-227).  The position-servo branch comes with the
-    position-control slice."""
-    if (m.actuator_kind != ACT_MOTOR).any():
-        raise NotImplementedError("only motor actuators are ported")
+    """qfrc_actuator from clamped ctrl, per actuator by its kind:
+
+    motor:    force = gear * ctrl                        (go1_torque.xml)
+    position: force = clamp(kp*(ctrl - q) - kv*qdot) * gear
+              (go1_position.xml servos; the clamp to forcerange where
+              forcelimited; kp from params, per env under domain
+              randomization, kv from the model)
+    """
     dtype, dev = qpos.dtype, qpos.device
     lo = cached(m, "ctrl_lo", lambda: m.actuator_ctrlrange[:, 0], dev, dtype)
     hi = cached(m, "ctrl_hi", lambda: m.actuator_ctrlrange[:, 1], dev, dtype)
     limited = cached(m, "ctrl_limited", lambda: m.actuator_ctrllimited, dev)
     c = torch.where(limited, torch.minimum(torch.maximum(ctrl, lo), hi), ctrl)
-    force = params["actuator_gear"].to(dtype) * c
-    qfrc = torch.zeros((qpos.shape[0], m.nv), dtype=dtype, device=dev)
+    gear = params["actuator_gear"].to(dtype)
     dadr = index(m, "act_dofadr", lambda: m.jnt_dofadr[m.actuator_trnid], dev)
+    force = gear * c
+    if (m.actuator_kind != ACT_MOTOR).any():
+        qadr = index(m, "act_qposadr", lambda: m.jnt_qposadr[m.actuator_trnid], dev)
+        kv = cached(m, "act_kv", lambda: m.actuator_kv, dev, dtype)
+        flo = cached(m, "force_lo", lambda: m.actuator_forcerange[:, 0], dev, dtype)
+        fhi = cached(m, "force_hi", lambda: m.actuator_forcerange[:, 1], dev, dtype)
+        flimited = cached(m, "force_limited", lambda: m.actuator_forcelimited, dev)
+        pos_f = params["actuator_kp"].to(dtype) * (c - qpos[:, qadr]) - kv * qvel[:, dadr]
+        pos_f = torch.where(flimited, torch.minimum(torch.maximum(pos_f, flo), fhi), pos_f)
+        motor = cached(m, "act_motor", lambda: m.actuator_kind == ACT_MOTOR, dev)
+        force = torch.where(motor, force, pos_f * gear)
+    qfrc = torch.zeros((qpos.shape[0], m.nv), dtype=dtype, device=dev)
     return qfrc.index_add_(1, dadr, force)
 
 

@@ -15,7 +15,8 @@ ragged last block); a batch and a permutation of it give bitwise the same
 result per env, two launches are bitwise equal, and the phase profile's
 cycles add up; the launch plan the kernel's host code computes fits the
 card's shared memory, and layouts it cannot hold raise; a short PPO
-train_iteration runs on the card.
+train_iteration runs on the card; one control step of the position-servo
+Go2 env and of the rough-terrain env on the card agrees with the CPU.
 """
 
 import numpy as np
@@ -219,3 +220,52 @@ def test_train_iteration_on_card():
     after = list(ts.policy.parameters())
     assert all(torch.isfinite(p).all() for p in after)
     assert any(not torch.equal(a, b) for a, b in zip(after, before))
+
+
+@pytest.mark.parametrize("option", ["go2_position", "rough_terrain"])
+def test_control_step_matches_cpu(option):
+    """One step_autoreset of the position-servo Go2 env (centered actions,
+    10 Newton iterations, uniform slots) and of the rough-terrain env
+    (tilted contact normals, 15 iterations) on the card against the plain
+    path on the CPU, from the same near-keyframe states on the drawn
+    ground at B = 16, env 1 resetting into the same injected state: qpos,
+    qvel and obs within 1e-3 scaled (chip_smoke.py holds every option so;
+    the reward's "dynamic" acceleration cost divides by |qvel| + 1e-6
+    and magnifies float32 rounding, so it is not held)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from quadruped_tpu_torch.physics.terrain import height_normal
+
+    cfg = {"go2_position": Go1Config(robot="go2", ctrl_type="position",
+                                     action_mode="centered"),
+           "rough_terrain": Go1Config(ctrl_type="position", terrain="rough")}[option]
+    env_c, env_g = Go1Env(cfg, device="cpu"), Go1Env(cfg, device="cuda")
+    B = 16
+    rng = np.random.default_rng(0)
+    g = torch.Generator().manual_seed(0)
+    st = env_c.reset(B, g)
+    fresh = env_c.reset(B, g, params=st.params)
+    qpos = torch.as_tensor(
+        (env_c.key_qpos + rng.normal(0, 0.01, (B, 19))).astype(np.float32))
+    if "terrain_amp" in st.params:
+        qpos[:, 2] += height_normal(st.params, qpos[:, :2])[0]
+    st.qpos = qpos
+    st.qvel = torch.as_tensor(rng.normal(0, 0.1, (B, 18)).astype(np.float32))
+    st.steps[1] = cfg.max_episode_steps - 1
+    action = torch.as_tensor(rng.uniform(-1, 1, (B, 12)).astype(np.float32))
+
+    def cuda(s):
+        return type(s)(**{k: ({n: t.cuda() for n, t in v.items()}
+                              if k == "params" else v.cuda())
+                          for k, v in vars(s).items()})
+
+    launches = N.newton_solve.launches["vpu"]
+    out_c = env_c.step_autoreset(st, action, fresh=fresh)
+    out_g = env_g.step_autoreset(cuda(st), action.cuda(), fresh=cuda(fresh))
+    torch.cuda.synchronize()
+    assert N.newton_solve.launches["vpu"] == launches + 10
+    assert bool(out_g[4][1]) and bool(out_c[4][1])
+    for what, c, k in (("qpos", out_c[0].qpos, out_g[0].qpos),
+                       ("qvel", out_c[0].qvel, out_g[0].qvel),
+                       ("obs", out_c[1], out_g[1])):
+        assert _scaled(k.cpu(), c) <= 1e-3, what

@@ -4,7 +4,7 @@ Model arrays, tree schedules, collision tables and constraint layouts are
 numpy on both sides and must be equal array by array; the quaternion /
 spatial / Cholesky helpers run float32 batches from a numpy seed through
 both and agree to float32 rounding.  Also: the port imports no JAX, and
-its entry points refuse what this slice does not implement.
+its entry points refuse what it does not implement.
 """
 
 import dataclasses
@@ -211,10 +211,20 @@ def test_precision_rule_set():
     ids=lambda d: next(iter(d)),
 )
 def test_env_rejects_unported_options(overrides):
+    """collision_mode="plane" is the one option not ported: it raises,
+    alone and beside any other option, except in biped mode, which maps it
+    to the full table as the reference does.  Every other option builds."""
     from quadruped_tpu_torch.env.go1 import Go1Env
 
-    with pytest.raises(NotImplementedError):
-        Go1Env(Go1Config(**overrides), device="cpu")
+    if "collision_mode" not in overrides:
+        env = Go1Env(Go1Config(**overrides), device="cpu")
+        assert env.pipeline.table.ncand > 0
+    plane = dict(overrides, collision_mode="plane")
+    if plane.get("biped"):
+        assert Go1Env(Go1Config(**plane), device="cpu").pipeline.table.ncand == 811
+    else:
+        with pytest.raises(NotImplementedError, match="collision_mode"):
+            Go1Env(Go1Config(**plane), device="cpu")
 
 
 def test_entry_points_default_to_cuda():

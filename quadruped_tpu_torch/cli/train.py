@@ -4,8 +4,8 @@ package's quadruped_tpu/cli/train.py (every flag, default and choice).
 Runs on the card; with QTPU_FORCE_CPU set it runs the plain PyTorch path
 on the CPU instead, and without either it raises.  `--run test` loads a
 policy artifact of the port, runs deterministic episodes and prints
-per-episode stats; rendering videos (`--record_test_episodes`) is not
-ported yet.
+per-episode stats and, with `--record_test_episodes`, renders each
+episode to eval_videos/test_ep{i}_r{reward}.mp4.
 
 Usage:
     python -m quadruped_tpu_torch.cli.train --run train --total_timesteps 5000000
@@ -68,8 +68,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n_epochs", type=int, default=10)
     # default "full" = the reference's collision semantics (every geom has
     # contype/conaffinity 1, so self-pairs are live); contact pools are
-    # only available for the full table.  "plane" is not ported: Go1Env
-    # raises NotImplementedError on it outside biped mode.
+    # only available for the full table.  "plane" is the floor-only table
+    # (every candidate a solver slot), the reference's learning-regression
+    # env.
     p.add_argument("--collision", type=str, default="full",
                    choices=["plane", "full"])
     p.add_argument("--no_videos", action="store_true")
@@ -365,8 +366,17 @@ def run_test(args, device=None):
         f"{len(ep_rew)} episodes"
     )
     if args.record_test_episodes:
-        print("  --record_test_episodes: rendering is not ported yet "
-              "(ROADMAP queue 1 item 16)")
+        from ..viz.render import render_trajectory
+
+        cfg = runner.env.cfg
+        every = max(1, int(1 / (cfg.dt * 30)))
+        for i in range(len(ep_rew)):
+            p = f"eval_videos/test_ep{i}_r{ep_rew[i]:.1f}.mp4"
+            render_trajectory(
+                out["qpos"][i][: int(ep_len[i])], p, cfg.ctrl_type, fps=30,
+                every=every, robot=cfg.robot, device=runner.device,
+            )
+            print(f"  recorded {p}")
     return ep_rew, ep_len, success, out
 
 

@@ -18,17 +18,17 @@ the original Gymnasium env (go1_mujoco_env.py):
 
 Every Go1Config option of the reference runs: go1 and go2, torque motors
 and position servos, raw and centered actions, biped mode, rough terrain,
-gait conditioning, domain randomization with actuator latency, and the
-train-time reward levers.  One does not: collision_mode="plane" (the
-floor-only table, which the reference solves without its kernel) raises
-NotImplementedError in Go1Env.__init__, except in biped mode, which maps
-it to "full" as the reference does.
+gait conditioning, domain randomization with actuator latency, the
+train-time reward levers, and both collision tables: "full" (top-K or
+pooled slots) and "plane" (the floor-only table, every candidate a slot;
+biped mode maps it to "full", as the reference does).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 
 import numpy as np
 import torch
@@ -107,12 +107,6 @@ class Go1Env:
         mode = cfg.collision_mode
         if cfg.biped and mode == "plane":
             mode = "full"  # self-collision costs need self pairs
-        if mode != "full":
-            raise NotImplementedError(
-                f"collision_mode={cfg.collision_mode!r} is not ported: the "
-                "reference solves its floor-only table without the Newton "
-                "kernel (physics/solver.py:311-316)"
-            )
         from ..assets import robot_model
 
         self.device = resolve_device(device)
@@ -121,15 +115,25 @@ class Go1Env:
         if cfg.solver_iterations is not None:
             self.m.opt.iterations = int(cfg.solver_iterations)
         pools = None
-        if cfg.contact_pools is not None:
+        if cfg.contact_pools is not None and mode != "full":
+            warnings.warn(
+                "contact_pools requires collision_mode='full'; ignoring "
+                f"pools in {mode!r} mode",
+                stacklevel=2,
+            )
+        if cfg.contact_pools is not None and mode == "full":
             if len(cfg.contact_pools) != 3:
                 raise ValueError(
                     "contact_pools must be (K_condim6, K_condim3, "
                     f"K_condim1); got {cfg.contact_pools!r}"
                 )
             pools = dict(zip((6, 3, 1), cfg.contact_pools))
+        # the floor-only table ("plane") has no top-K: every candidate is
+        # a solver slot (quadruped_tpu/env/go1.py:112-116)
         self.pipeline = Pipeline.build(
-            self.m, "full", max_contacts=cfg.max_contacts, contact_pools=pools,
+            self.m, mode,
+            max_contacts=cfg.max_contacts if mode == "full" else None,
+            contact_pools=pools,
         )
         m = self.m
         if m.body_names[TRUNK] != "trunk" or [

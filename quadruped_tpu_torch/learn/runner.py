@@ -21,9 +21,11 @@ Where the reference bounds TPU program time, the port runs eagerly:
     (a Chrome trace JSON in that directory);
   * QTPU_PHASE_TIMING=1 splits each iteration into rollout and update,
     timed with a device synchronize after each.
-The video step calls the offline renderer (viz/render.py, which needs
-mujoco and cv2), which is not ported yet: when a video is due, the runner
-prints one line naming the eval's spool.
+The video step renders the first eval episode to
+training_videos/*.mp4 (viz/render.py: mujoco where the host has it and a
+GL context, else a cv2 wireframe from one batched fk on the device) and
+prints the termination table.  A failed render prints one line and
+training goes on, as in the reference.
 """
 
 from __future__ import annotations
@@ -377,6 +379,7 @@ class Runner:
             run_name += f"-{cfg.run_name}"
         run_dir = Path(cfg.model_dir) / run_name
         run_dir.mkdir(parents=True, exist_ok=True)
+        video_dir = Path("training_videos")
 
         ts = trainer.init(seed, rand_power=rand_power)
         history = ckpt.TrainingHistory()
@@ -570,11 +573,42 @@ class Runner:
 
                 if cfg.save_videos and step >= next_video:
                     next_video = step + cfg.video_interval
-                    print(
-                        f"  video: rendering is not ported yet (ROADMAP "
-                        f"queue 1 item 16); eval trajectory spooled to "
-                        f"{spool_path}"
+                    from ..viz.render import TrajectoryRenderer, write_video
+
+                    qpos_log = out["qpos"][0]  # first eval episode
+                    n_frames = min(
+                        len(qpos_log), cfg.video_duration * cfg.video_fps
                     )
+                    # control rate is 50 Hz; subsample to ~video_fps
+                    every = max(1, int(1 / (self.env.cfg.dt * cfg.video_fps)))
+                    path = video_dir / (
+                        f"training_t{step}_r{mean_rew:.1f}_"
+                        f"{time.strftime('%Y%m%d_%H%M%S')}.mp4"
+                    )
+                    try:
+                        # render_trajectory's steps, with the renderer kept
+                        # to print which backend drew the video
+                        renderer = TrajectoryRenderer(
+                            self.env.cfg.ctrl_type, robot=self.env.cfg.robot,
+                            device=self.device,
+                        )
+                        try:
+                            write_video(path, renderer.frames(
+                                qpos_log[: n_frames * every : every]),
+                                cfg.video_fps)
+                        finally:
+                            renderer.close()
+                        hist = plots.termination_histogram(
+                            out["termination_reason"][
+                                out["termination_reason"] != 0
+                            ]
+                        )
+                        if cfg.verbose:
+                            print(f"  video -> {path} ({renderer.backend})")
+                            if hist:
+                                print(plots.format_termination_table(hist))
+                    except Exception as e:  # rendering must never kill training
+                        print(f"  video rendering failed: {e}")
 
             if step >= next_ckpt:
                 next_ckpt = step + cfg.checkpoint_interval

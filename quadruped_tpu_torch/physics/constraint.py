@@ -6,8 +6,9 @@ when the pipeline is built:
   [dof friction rows | joint limit rows | contact rows]
 where the contact rows come from top-K slots: either condim row pools
 (per-condim-class slots emitting condim rows each, the configuration of
-record) or uniform slots of 6 rows.  Inactive rows are masked, never
-removed, so every shape is static.
+record) or uniform slots of 6 rows; without selection (the floor-only
+table) every candidate is a slot emitting its static condim's rows.
+Inactive rows are masked, never removed, so every shape is static.
 
 Formulas (verified against mjData.efc_* by the reference's tests):
   impedance d(x): solimp=(dmin,dmax,width,mid,power), x=|pos-margin|/width
@@ -215,6 +216,7 @@ class Efc:
     con_fscale: torch.Tensor   # (B, K, 6) scaled force -> force
     con_dim_mask: torch.Tensor  # (B, K, 6) bool rows enabled by condim
     con_sel: torch.Tensor      # (B, K) candidate index of each slot
+                               # (0..K-1 without selection)
     con_body1: torch.Tensor    # (B, K) body ids of the selected slots
     con_body2: torch.Tensor
     con_Rn: torch.Tensor       # (B, K) normal-row regularization
@@ -398,12 +400,6 @@ def assemble(
 
     # ---- contact rows: narrowphase over every candidate, then top-K ---------
     K0 = layout.max_contacts
-    if layout.pools is None and (K0 is None or K0 >= layout.ncon):
-        raise NotImplementedError(
-            "contact rows without top-K selection (no pools, no "
-            "max_contacts) are not ported; the solver kernel needs a "
-            "pooled or uniform slot layout"
-        )
     dist_all, pos_all, nrm_all = narrowphase(
         m, table, kin, terrain=terrain, defer_cyl=layout.defer_cyl
     )
@@ -430,6 +426,19 @@ def assemble(
         slot_valid = torch.cat(valid_l, dim=1)
         static_cd = np.concatenate(cd_l)
         pool_dims = tuple((Kc, cdim) for cdim, _i, Kc in layout.pools if Kc)
+        condim = index(layout, "static_cd", lambda: static_cd, dev)
+    elif K0 is None or K0 >= layout.ncon:
+        # no selection (the floor-only table, collision_mode="plane"; the
+        # reference's sel-None branch): every candidate is a slot, in table
+        # order, with its static condim, so the contact block emits
+        # compact rows.  pool_dims stays None, as in the reference; the
+        # solver reads the condim runs off the row map.
+        sel = index(layout, "all_slots", lambda: np.arange(layout.ncon), dev)
+        sel = sel.expand(B, -1)
+        slot_valid = torch.ones((B, layout.ncon), dtype=torch.bool, device=dev)
+        overflow = torch.zeros(B, dtype=torch.int64, device=dev)
+        static_cd = np.asarray(layout.con_condim, np.int64)
+        pool_dims = None
         condim = index(layout, "static_cd", lambda: static_cd, dev)
     else:
         # uniform top-K slots of 6 rows each

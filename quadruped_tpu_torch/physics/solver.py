@@ -7,9 +7,15 @@ Huber dof-friction rows, one-sided limit rows and elliptic friction cones
 (scaled so the cone is circular with mu_tilde = mu1/sqrt(impratio)).
 
 `solve` sends every batch to the Newton op (ops/newton.py: the CUDA
-kernel on the card, its plain PyTorch version on the CPU), under the
-reference's dispatch rule (solver.py:311-316): pooled or uniform slot
-layout, at least one contact slot, float32.  It passes no Gram mode, as
+kernel on the card, its plain PyTorch version on the CPU): pooled or
+uniform slot layouts, as under the reference's dispatch rule
+(solver.py:311-316), and also the compact rows without pools of the
+floor-only table (collision_mode="plane"), which the reference solves
+with its single-env path (`_solve_single`, vmapped).  Their slots come in
+runs of one static condim, which are the kernel's pools (`pool_runs`),
+so the port routes that layout to the op as well; the results agree
+within the tolerances the reference holds its kernel to its single-env
+path (tests/test_torch_plane.py).  At least one contact slot, float32.  It passes no Gram mode, as
 the reference's solver passes none (solver.py:321-330), so QTPU_GRAM
 selects it.  The per-row penalty of the reference's single-env path
 (`_penalty`, `_penalty_S`) has one counterpart, the plain Newton
@@ -31,6 +37,11 @@ from .constraint import Efc
 _LS_ALPHAS = tuple(4.0 * 0.5**k for k in range(16))
 
 _EXPAND_CACHE: dict[tuple, tuple] = {}
+_POOL_CACHE: dict[tuple, tuple] = {}
+
+# the most condim runs the Newton kernel takes as pools (csrc/newton.cu:
+# MAX_POOLS)
+MAX_POOLS = 4
 
 
 def _row_maps(efc: Efc, ncon: int, device):
@@ -60,21 +71,43 @@ def _expand_rows(efc: Efc, zrows: torch.Tensor, ncon: int) -> torch.Tensor:
     return torch.where(mask, gathered, torch.zeros_like(gathered))
 
 
+def pool_runs(row_con: tuple, ncon: int) -> tuple:
+    """The pools ((K_run, condim), ...) of a compact row layout without
+    pools: the runs of equal static condim over the slots (the rows of
+    slot k are row_con's entries equal to k), built once per layout.
+    The floor-only Go1 table gives ((112, 3), (4, 6)), Go2's ((96, 3),
+    (4, 6)).  More than MAX_POOLS runs raise NotImplementedError."""
+    key = (row_con, ncon)
+    if key not in _POOL_CACHE:
+        runs: list[list[int]] = []
+        for d in np.bincount(np.asarray(row_con, np.int64), minlength=ncon):
+            if runs and runs[-1][1] == d:
+                runs[-1][0] += 1
+            else:
+                runs.append([1, int(d)])
+        if len(runs) > MAX_POOLS:
+            raise NotImplementedError(
+                f"the contact slots' condims form {len(runs)} runs; the "
+                f"Newton kernel takes at most {MAX_POOLS} pools (see "
+                "ROADMAP.md, queue 3)"
+            )
+        _POOL_CACHE[key] = tuple((k, d) for k, d in runs)
+    return _POOL_CACHE[key]
+
+
 def newton_args(M, qacc_smooth, warmstart, efc: Efc):
     """The Newton op's 15 arrays and its layout arguments for a batch:
     contiguous float32, masks as 0/1 floats (ops/newton.py:newton_solve).
-    Only the reference's kernel layouts are taken (solver.py:311-316):
-    pooled or uniform slots, at least one slot, float32."""
+    Pooled or uniform slots, or compact rows without pools (their condim
+    runs as pools, `pool_runs`); at least one slot, float32."""
     ncon = efc.con_dist.shape[-1]
-    if not (
-        (efc.row_con is None or efc.pool_dims is not None)
-        and ncon > 0
-        and qacc_smooth.dtype == torch.float32
-    ):
+    if not (ncon > 0 and qacc_smooth.dtype == torch.float32):
         raise NotImplementedError(
-            "the Newton op takes float32 pooled or uniform slot layouts "
-            "with at least one slot"
+            "the Newton op takes float32 layouts with at least one slot"
         )
+    pool_dims = efc.pool_dims
+    if efc.row_con is not None and pool_dims is None:
+        pool_dims = pool_runs(efc.row_con, ncon)
     f32 = torch.float32
     B = qacc_smooth.shape[0]
     args = (
@@ -86,7 +119,7 @@ def newton_args(M, qacc_smooth, warmstart, efc: Efc):
         efc.con_active.to(f32), efc.con_Rn.contiguous(),
         efc.con_mu_tilde.contiguous(),
     )
-    return args, dict(nf=efc.nf, nl=efc.nl, pool_dims=efc.pool_dims)
+    return args, dict(nf=efc.nf, nl=efc.nl, pool_dims=pool_dims)
 
 
 def solve(

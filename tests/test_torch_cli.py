@@ -7,9 +7,11 @@ returns its config: the configs are compared, no env is built).  Then on
 the port alone, on the CPU (QTPU_FORCE_CPU): a CLI training run at 4 envs
 x 2 steps on a cheap env (torque, condim pools, 2 Newton iterations,
 "shaped" profile, so that the reward is live) with evals of 2 control
-steps and a video due at every eval; its artifact tree and metadata; a
-resume from its first checkpoint; the dead-signal abort; `--run test` on
-its best model; and the capacity probe.
+steps and a video due at every eval; its artifact tree, videos and
+metadata; a resume from its first checkpoint; the dead-signal abort;
+`--run test` on its best model with each episode recorded; a training
+run on the floor-only table (`--collision plane`); and the capacity
+probe.
 """
 
 import contextlib
@@ -19,6 +21,7 @@ import json
 import shutil
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -139,8 +142,12 @@ def trained(tmp_path_factory):
 def test_train_artifact_tree(trained):
     """Best model, periodic checkpoints, final model, history with 2
     evals, spools of 2 records, plots, tfevents; the eval env keeps the
-    reference reward semantics; a due video prints the spool's path; a
-    live reward does not trip the guard."""
+    reference reward semantics; a due video writes an MP4 of the first
+    eval episode (one frame per control step at 30 fps) under
+    training_videos/, named by step and eval reward; a live reward does
+    not trip the guard."""
+    import cv2
+
     from quadruped_tpu_torch.native import read_log
 
     work, run_dir, ts, history, out = trained
@@ -163,8 +170,14 @@ def test_train_artifact_tree(trained):
         steps, rewards, qpos = read_log(run_dir / "trajectories" / f"eval_{step}.qtl")
         assert steps.tolist() == [step, step + 1] and qpos.shape == (2, 19)
         assert torch.isfinite(torch.as_tensor(qpos)).all()
-    assert out.count("video: rendering is not ported yet") == 2
-    assert "eval_16.qtl" in out and "DEAD LEARNING SIGNAL" not in out
+    videos = sorted((work / "training_videos").glob("*.mp4"))
+    assert [v.name.split("_")[1] for v in videos] == ["t16", "t8"]
+    for v in videos:
+        cap = cv2.VideoCapture(str(v))
+        assert cap.get(cv2.CAP_PROP_FRAME_COUNT) == 2 and cap.read()[0]
+        cap.release()
+    assert out.count("  video -> training_videos/training_t") == 2
+    assert "DEAD LEARNING SIGNAL" not in out
     assert ts.policy.log_std.device.type == "cpu"
 
 
@@ -231,8 +244,10 @@ def test_resume_continues(trained, monkeypatch):
 def test_run_test_plays_artifact(trained, monkeypatch):
     """`--run test` on the run's best model: the env its metadata names
     (torque), deterministic episodes (max_episode_time cut to 2 control
-    steps through make_env), per-episode lines."""
-    _, run_dir, _, _, _ = trained
+    steps through make_env), per-episode lines, and with
+    --record_test_episodes one MP4 per episode under eval_videos/."""
+    work, run_dir, _, _, _ = trained
+    monkeypatch.chdir(work)
     make_config = tcli.make_config
     envs = []
 
@@ -250,7 +265,10 @@ def test_run_test_plays_artifact(trained, monkeypatch):
     assert envs[0].cfg.ctrl_type == "torque"
     assert ep_rew.shape == ep_len.shape == success.shape == (2,)
     assert out["qpos"].shape == (2, 2, 19)
-    assert "episode 1: reward" in text and "rendering is not ported" in text
+    assert "episode 1: reward" in text
+    names = [f"test_ep{i}_r{ep_rew[i]:.1f}.mp4" for i in range(2)]
+    assert sorted(p.name for p in (work / "eval_videos").glob("*.mp4")) == sorted(names)
+    assert text.count("  recorded eval_videos/test_ep") == 2
 
 
 class ZeroRewardEnv(Go1Env):
@@ -278,11 +296,31 @@ def test_dead_signal_abort(tmp_path, monkeypatch):
 
 
 def test_collision_plane_raises(tmp_path, monkeypatch):
-    """--collision plane is not ported: the CLI raises as Go1Env does."""
+    """--collision plane trains: one CLI iteration at 2 envs x 2 steps on
+    the floor-only table (116 candidates, every one a solver slot) and
+    an eval, with finite metrics and a best model."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("QTPU_FORCE_CPU", "1")
-    with pytest.raises(NotImplementedError, match="collision_mode"):
-        tcli.main(["--run", "train", "--collision", "plane"])
+    envs = []
+    make_env = tcli.make_env
+
+    def spy(args, device=None):
+        envs.append(make_env(args, device))
+        return envs[-1]
+
+    monkeypatch.setattr(tcli, "make_env", spy)
+    (ts, history, run_dir), _out = _main(
+        ["--run", "train", "--collision", "plane", "--ctrl_type", "torque",
+         "--solver_iterations", "2", "--num_parallel_envs", "2",
+         "--n_steps", "2", "--num_minibatches", "1", "--n_epochs", "1",
+         "--total_timesteps", "4", "--eval_frequency", "4",
+         "--eval_max_time", "0.04", "--no_videos", "--run_name", "plane"])
+    env = envs[0]
+    assert env.cfg.collision_mode == "plane"
+    assert env.pipeline.table.ncand == 116 and env.pipeline.layout.max_contacts is None
+    assert history.series["timesteps"] == [4]
+    assert all(np.isfinite(history.series["rewards"]))
+    assert (tmp_path / run_dir / "best_model" / "policy.pt").exists()
 
 
 def test_capacity_probe_smoke():

@@ -10,15 +10,17 @@ Inputs come from the port's own pipeline at near-keyframe standing
 states, where the float32 Newton solve is stable (chip_smoke.py covers
 fallen-start and stiff states with its float64-referenced check).  The
 kernel runs in both Gram modes ("vpu" on the CUDA cores, "mxu" on the
-tensor cores), on both contact layouts, at B = 1, 256 and 4099 (a
+tensor cores), on the pooled and uniform contact layouts and on the
+floor-only table's (collision_mode="plane": 116 slots whose condim runs
+are its pools), at B = 1, 256 and 4099 (a
 ragged last block); a batch and a permutation of it give bitwise the same
 result per env, two launches are bitwise equal, and the phase profile's
 cycles add up; the launch plan the kernel's host code computes fits the
 card's shared memory, and layouts it cannot hold raise; a short PPO
 train_iteration runs on the card; a train state saved on the card loads
 on the CPU and the other way round, equal; one control step of the
-position-servo Go2 env and of the rough-terrain env on the card agrees
-with the CPU.
+position-servo Go2 env, of the rough-terrain env and of the plane env
+on the card agrees with the CPU.
 """
 
 import numpy as np
@@ -37,13 +39,14 @@ from quadruped_tpu_torch.physics.solver import newton_args
 pytestmark = pytest.mark.cuda
 
 
-@pytest.fixture(scope="module", params=["pooled", "uniform"])
+@pytest.fixture(scope="module", params=["pooled", "uniform", "plane"])
 def inputs(request):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     pools = (8, 28, 12) if request.param == "pooled" else None
-    env = Go1Env(Go1Config(contact_pools=pools, solver_iterations=8),
-                 device="cuda")
+    mode = "plane" if request.param == "plane" else "full"
+    env = Go1Env(Go1Config(contact_pools=pools, collision_mode=mode,
+                           solver_iterations=8), device="cuda")
     B = 256
     rng = np.random.default_rng(0)
     qpos = torch.as_tensor(
@@ -177,7 +180,8 @@ def test_newton_kernel_plan(inputs, mode):
     arrays (J, then aref, z, jd, f and the tables) in a multiple of 16
     bytes, 1-4 envs per block within 227 KB of shared memory, no spills;
     at least 12 resident envs per SM on the pooled layout, 6 on the
-    uniform one."""
+    uniform one, 5 on the plane table's (384 rows, 43,600 bytes per env
+    in chip_smoke.py's run)."""
     args, static = inputs
     nv, ne, K = args[0].shape[-1], args[3].shape[1], args[9].shape[1]
     r = N.kernel_resources(nv, static["nf"], static["nl"], K,
@@ -186,7 +190,8 @@ def test_newton_kernel_plan(inputs, mode):
     assert 1 <= r["envs_per_block"] <= 4
     assert r["smem_bytes_per_block"] == r["envs_per_block"] * r["env_bytes"]
     assert r["smem_bytes_per_block"] <= 227 * 1024
-    assert r["envs_per_sm"] >= (12 if static["pool_dims"] else 6)
+    want = 5 if K == 116 else 12 if static["pool_dims"] else 6
+    assert r["envs_per_sm"] >= want
     assert r["local_bytes"] == 0
 
 
@@ -266,13 +271,15 @@ def test_checkpoint_card_to_cpu(tmp_path):
     assert all(torch.isfinite(v).item() for v in metrics.values())
 
 
-@pytest.mark.parametrize("option", ["go2_position", "rough_terrain"])
+@pytest.mark.parametrize("option", ["go2_position", "rough_terrain", "plane"])
 def test_control_step_matches_cpu(option):
     """One step_autoreset of the position-servo Go2 env (centered actions,
     10 Newton iterations, uniform slots) and of the rough-terrain env
     (tilted contact normals, 15 iterations) on the card against the plain
     path on the CPU, from the same near-keyframe states on the drawn
-    ground at B = 16, env 1 resetting into the same injected state: qpos,
+    ground at B = 16, and of the floor-only table (Go1 torque,
+    collision_mode="plane", 116 slots), env 1 resetting into the same
+    injected state: qpos,
     qvel and obs within 1e-3 scaled (chip_smoke.py holds every option so;
     the reward's "dynamic" acceleration cost divides by |qvel| + 1e-6
     and magnifies float32 rounding, so it is not held)."""
@@ -282,7 +289,8 @@ def test_control_step_matches_cpu(option):
 
     cfg = {"go2_position": Go1Config(robot="go2", ctrl_type="position",
                                      action_mode="centered"),
-           "rough_terrain": Go1Config(ctrl_type="position", terrain="rough")}[option]
+           "rough_terrain": Go1Config(ctrl_type="position", terrain="rough"),
+           "plane": Go1Config(ctrl_type="torque", collision_mode="plane")}[option]
     env_c, env_g = Go1Env(cfg, device="cpu"), Go1Env(cfg, device="cuda")
     B = 16
     rng = np.random.default_rng(0)

@@ -186,6 +186,10 @@ def test_port_imports_no_jax():
         "from quadruped_tpu_torch.utils import tb\n"
         "from quadruped_tpu_torch.viz import plots\n"
         "from quadruped_tpu_torch.cli import train, capacity\n"
+        "from quadruped_tpu_torch import mjcf, assets\n"
+        "from quadruped_tpu_torch.viz import render, tools\n"
+        "from quadruped_tpu_torch.monitor import server\n"
+        "from quadruped_tpu_torch.examples import minimal_train\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'orbax', 'quadruped_tpu') "
@@ -216,20 +220,24 @@ def test_precision_rule_set():
     ids=lambda d: next(iter(d)),
 )
 def test_env_rejects_unported_options(overrides):
-    """collision_mode="plane" is the one option not ported: it raises,
-    alone and beside any other option, except in biped mode, which maps it
-    to the full table as the reference does.  Every other option builds."""
+    """Every option builds, alone and with collision_mode="plane" beside
+    it: the floor-only table of the robot (go1 116 candidates, go2 100),
+    every candidate a solver slot (no top-K), except in biped mode, which
+    maps "plane" to the full table (811) as the reference does."""
     from quadruped_tpu_torch.env.go1 import Go1Env
 
     if "collision_mode" not in overrides:
         env = Go1Env(Go1Config(**overrides), device="cpu")
         assert env.pipeline.table.ncand > 0
     plane = dict(overrides, collision_mode="plane")
+    env = Go1Env(Go1Config(**plane), device="cpu")
     if plane.get("biped"):
-        assert Go1Env(Go1Config(**plane), device="cpu").pipeline.table.ncand == 811
+        assert env.pipeline.table.ncand == 811
     else:
-        with pytest.raises(NotImplementedError, match="collision_mode"):
-            Go1Env(Go1Config(**plane), device="cpu")
+        ncand = 100 if plane.get("robot") == "go2" else 116
+        assert env.pipeline.table.ncand == ncand
+        assert env.pipeline.layout.max_contacts is None
+        assert env.pipeline.layout.pools is None
 
 
 def test_entry_points_default_to_cuda():
@@ -262,6 +270,11 @@ def test_entry_points_default_to_cuda():
         evaluate_gate(artifact, episodes=2, eval_time=0.02)
     with pytest.raises(RuntimeError, match="cuda"):
         capacity.probe([4], steps=1)
+    # the renderer (its wireframe's fk runs on its device)
+    from quadruped_tpu_torch.viz.render import TrajectoryRenderer
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        TrajectoryRenderer()
     saved = os.environ.pop("QTPU_FORCE_CPU", None)
     try:
         with pytest.raises(RuntimeError, match="cuda"):

@@ -95,7 +95,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
               per eval control step at 2, 5 and 8 envs, the projected eval
               share of a run at the CLI defaults, checkpoint ms and the
               capacity table.
-  8. parallel data parallelism over a gloo process group, each rank a
+  8. orbax   the JAX package's committed orbax checkpoints through the
+              port's reader (no JAX, orbax, tensorstore or zstandard on the
+              card host): (a) the three payloads read, each leaf's shape
+              as _METADATA's write_shape, its dtype as expected, each
+              tree's sha256 the constant tests/test_torch_orbax.py ties
+              to orbax's restore (arrays, bytes and seconds each); (b) the gate on
+              results/walk_r5_progress (train_state/), 8 episodes of 5 s:
+              healthy_ok, length_ok and stepping_ok true, as the JAX
+              package's 20-s gate found them; (c) playback of
+              multigait-r5/best_model (params/) through --run test, 4
+              episodes of 50 control steps, all healthy; (d) --run train
+              --model_path multigait-r5/latest_checkpoint, one iteration at
+              64 envs x 8 steps: the restored params and Adam state
+              bit-equal to (a)'s arrays, the global step continuing from
+              the checkpoint's, finite loss and approx_kl, final_model
+              reloading to the state saved.
+  9. parallel data parallelism over a gloo process group, each rank a
               spawned process with its own CUDA context on this card
               (quadruped_tpu_torch/parallel/).  (a) One
               multichip_train_iteration of RECORD at PPOConfig() over 2
@@ -114,11 +130,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
               dryrun_multichip(2, backend="gloo") and one NCCL rank.  A
               failed rank, a refused backend or a rank set past its time
               limit fails the run.
-  9. report   a JSON line with the main path's, the kernels', the train,
-              the breadth, the runner and the parallel phases' numbers;
+ 10. report   a JSON line with the main path's, the kernels', the train,
+              the breadth, the runner, the orbax and the parallel phases'
+              numbers;
               one JSON line listing each kernel (launches in the run of
               the path that runs it, named in launches_over, and in each
-              breadth, runner and parallel path (per rank), named in
+              breadth, runner, orbax and parallel path (per rank), named in
               launches_by_path; max abs error against its plain version
               on the stable envs at 2 iterations over every input set,
               named in max_abs_err_over; times and bound on the
@@ -129,8 +146,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 The main, train and breadth phases select the Gram mode through
 QTPU_GRAM, as the reference does; the script clears any inherited value
-first, and the runner and parallel phases run with it unset.
-Weights and states are random, made from --seed.  Nothing is fetched.
+first, and the runner, orbax and parallel phases run with it unset.
+Weights and states are random, made from --seed, except in the orbax
+phase, which runs the repo's committed policies.  Nothing is fetched.
 """
 
 from __future__ import annotations
@@ -1568,6 +1586,236 @@ def phase_runner(seed):
     return rep
 
 
+# the JAX package's committed orbax payloads, and the sha256 of each
+# tree's leaves in sorted key order as little-endian bytes
+# (checkpoint.orbax_format.tree_digest); tests/test_torch_orbax.py holds
+# these to the digests of orbax's own restore
+ORBAX_PAYLOADS = {
+    "best_model": ROOT / "results" / "live" / "multigait-r5" / "best_model",
+    "latest_checkpoint": ROOT / "results" / "live" / "multigait-r5"
+                         / "latest_checkpoint",
+    "walk_r5_progress": ROOT / "results" / "walk_r5_progress",
+}
+ORBAX_DIGESTS = {
+    "best_model": "c913bcf600db7cdc52de287b4307a7b94cee919abb2c8ae3b89ac4b5dd767f62",
+    "latest_checkpoint": "a3a7f9cc149d8a6ebec79e4147d1d86a9d82e6cbc83f5f1bcaddf8133f43b5f8",
+    "walk_r5_progress": "4ef42cd604b03820204db632664dd9deb7296fba8d1c0ef7d04e8c62285be989",
+}
+ORBAX_GATE_TIME = 5.0              # s of sim per gate episode: 250 steps
+ORBAX_RESUME = dict(envs=64, n_steps=8, eval_steps=5)
+
+
+def orbax_read(name: str, path: Path) -> tuple:
+    """(a) of the orbax phase for one payload -> (tree, row)."""
+    from quadruped_tpu_torch.checkpoint.orbax_format import (nest, read_leaves,
+                                                             tree_digest)
+
+    sub = path / ("params" if name == "best_model" else "train_state")
+    t0 = time.perf_counter()
+    leaves = read_leaves(sub)
+    read_s = time.perf_counter() - t0
+    meta = json.loads((sub / "_METADATA").read_text())["tree_metadata"]
+    for key, leaf in meta.items():
+        keys = tuple(k["key"] for k in leaf["key_metadata"])
+        a = leaves[keys]
+        shape = leaf["value_metadata"].get("write_shape")
+        if shape is None:
+            if a is not None:
+                raise RuntimeError(f"orbax read {name}: {key} is not None")
+            continue
+        want = {"count": np.int32, "rng": np.uint32}.get(keys[-1], np.float32)
+        if a.shape != tuple(shape) or a.dtype != want:
+            raise RuntimeError(f"orbax read {name}: {key} is {a.dtype} "
+                               f"{a.shape}; expected {want.__name__} and "
+                               f"_METADATA's write_shape {tuple(shape)}")
+    tree = nest(leaves)
+    digest = tree_digest(tree)
+    if digest != ORBAX_DIGESTS[name]:
+        raise RuntimeError(f"orbax read {name}: sha256 {digest}, expected "
+                           f"{ORBAX_DIGESTS[name]}")
+    arrays = [a for a in leaves.values() if a is not None]
+    row = {"arrays": len(arrays), "array_bytes": sum(a.nbytes for a in arrays),
+           "file_bytes": sum(f.stat().st_size for f in sub.rglob("*")
+                             if f.is_file()),
+           "read_s": read_s, "sha256": digest}
+    log(f"orbax read {name} ({sub.relative_to(ROOT)}): {row['arrays']} "
+        f"arrays, {row['array_bytes']} bytes of arrays from "
+        f"{row['file_bytes']} bytes of files in {read_s:.3f} s; shapes as "
+        f"_METADATA's write_shape, dtypes as expected; sha256 "
+        f"{digest[:16]}... as orbax's restore")
+    return tree, row
+
+
+def phase_orbax(seed):
+    """The JAX package's orbax checkpoints on the card host, through the
+    port's reader (checkpoint/zstd.py, ocdbt.py, orbax_format.py: no JAX,
+    orbax, tensorstore or zstandard), in a temporary working directory:
+
+    (a) Read the three committed payloads: each leaf's shape as
+        _METADATA's write_shape, its dtype int32 for Adam's count, uint32
+        for the JAX key, float32 else; each tree's sha256 the constant that
+        tests/test_torch_orbax.py ties to orbax's restore.
+    (b) The gate on results/walk_r5_progress (a train_state/ layout, read
+        through load_policy_any), 8 episodes of 5 s (250 control steps):
+        healthy_ok, length_ok and stepping_ok true, as the JAX package's
+        20-s gate found them (metadata.json's gate_eval).
+    (c) Playback of multigait-r5/best_model (params/: gait conditioning,
+        53-dim obs) through cli.train.run_test, 4 envs x 50 control
+        steps: finite metrics, every episode healthy throughout.
+    (d) `--run train --model_path multigait-r5/latest_checkpoint`: one
+        iteration at 64 envs x 8 steps and an eval of 5 steps; the Adam
+        step and moments and the params it restores bit-equal, on the
+        host, to the arrays (a) read; global_step continuing from
+        metadata.json's; finite loss and approx_kl; the port checkpoint
+        it writes (final_model) reloading to the state saved.
+    """
+    import shutil
+    import tempfile
+
+    from quadruped_tpu_torch import checkpoint as ckpt
+    from quadruped_tpu_torch.cli import train as cli
+    from quadruped_tpu_torch.convert import opt_state_from_jax, policy_from_jax
+    from quadruped_tpu_torch.learn.gate import evaluate_gate
+
+    if os.environ.get("QTPU_GRAM") is not None:
+        raise RuntimeError("QTPU_GRAM must be unset for the orbax phase")
+    rep = {"read": {}, "launches": {}}
+    trees = {}
+    for name, path in ORBAX_PAYLOADS.items():
+        trees[name], rep["read"][name] = orbax_read(name, path)
+
+    # (b) the gate on the train-state layout
+    walk = ORBAX_PAYLOADS["walk_r5_progress"]
+    jax_gate = json.loads((walk / "metadata.json").read_text())["gate_eval"]
+    steps = int(ORBAX_GATE_TIME / 0.02)
+    zero_launches()
+    t0 = time.perf_counter()
+    v = evaluate_gate(walk, episodes=8, eval_time=ORBAX_GATE_TIME)
+    torch.cuda.synchronize()
+    gate_s = time.perf_counter() - t0
+    rep["launches"]["gate"] = read_launches("orbax gate", steps * 10)
+    nums = ("healthy_frac", "mean_length", "touchdowns_per_sec",
+            "tracking_error", "distance", "distance_floor", "feet_airtime")
+    oks = ("healthy_ok", "length_ok", "stepping_ok", "tracking_ok",
+           "distance_ok", "gate")
+    finite_gait({k: float(v[k]) for k in nums}, "orbax gate")
+    held = [k for k in ("healthy_ok", "length_ok", "stepping_ok") if not v[k]]
+    if held:
+        raise RuntimeError(f"orbax gate: {held} false where the JAX package's "
+                           f"20-s gate has them true: "
+                           + json.dumps({k: v[k] for k in (*nums, *oks)}))
+    rep["gate"] = {k: v[k] for k in (*nums, *oks)}
+    rep["gate"].update(episodes=8, eval_time_s=ORBAX_GATE_TIME, seconds=gate_s)
+    log(f"orbax gate (walk_r5_progress/train_state via load_policy_any, 8 "
+        f"episodes of {ORBAX_GATE_TIME} s): {gate_s:.1f} s; port "
+        + json.dumps({k: v[k] for k in (*nums, *oks)})
+        + "; JAX package at 20 s (gate_eval) "
+        + json.dumps({k: jax_gate[k] for k in (*nums, *oks)})
+        + f"; Newton launches {rep['launches']['gate']}")
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_orbax_"))
+    cwd = os.getcwd()
+    inst = _Instrument()
+    try:
+        os.chdir(work)
+        # (c) playback of the params layout through --run test
+        best = ORBAX_PAYLOADS["best_model"]
+        args = cli.fill_iface_defaults(cli.build_parser().parse_args(
+            ["--run", "test", "--model_path", str(best),
+             "--num_test_episodes", "4", "--seed", str(seed)]))
+        make_config = cli.make_config
+        cli.make_config = lambda a: dataclasses.replace(make_config(a),
+                                                        max_episode_time=1.0)
+        try:
+            zero_launches()
+            t0 = time.perf_counter()
+            ep_rew, ep_len, _success, out = cli.run_test(args, "cuda")
+            torch.cuda.synchronize()
+            play_s = time.perf_counter() - t0
+        finally:
+            cli.make_config = make_config
+        rep["launches"]["playback"] = read_launches("orbax playback", 50 * 10)
+        g = out["gait_metrics"]
+        finite_gait(g, "orbax playback")
+        if args.gait_conditioning is not True or not inst.rows["load_policy"]:
+            raise RuntimeError("orbax playback: not the gait-conditioned env "
+                               "or no load_policy call")
+        if not (np.isfinite(ep_rew).all() and (ep_len == 50).all()
+                and np.asarray(out["healthy"]).all()):
+            raise RuntimeError(f"orbax playback: rewards {ep_rew}, lengths "
+                               f"{ep_len}, healthy_frac {g['healthy_frac']}")
+        rep["playback"] = {"rewards": ep_rew.tolist(), "lengths": ep_len.tolist(),
+                           "gait_metrics": g, "seconds": play_s}
+        log(f"orbax playback (cli.train.run_test on multigait-r5/best_model "
+            f"params/, 4 episodes of 50 control steps, gait-conditioned, "
+            f"53-dim obs): {play_s:.1f} s; rewards "
+            f"{np.round(ep_rew, 4).tolist()}, lengths {ep_len.tolist()}, "
+            f"every step healthy; tracking_error {g['tracking_error']:.4f}, "
+            f"touchdowns_per_sec {g['touchdowns_per_sec']:.3f}; Newton "
+            f"launches {rep['launches']['playback']}")
+
+        # (d) resume from the JAX package's train_state/
+        latest = ORBAX_PAYLOADS["latest_checkpoint"]
+        step0 = json.loads((latest / "metadata.json").read_text())["global_step"]
+        r = ORBAX_RESUME
+        per_iter = r["envs"] * r["n_steps"]
+        zero_launches()
+        t0 = time.perf_counter()
+        ts, _h, run_dir = cli.main([
+            "--run", "train", "--model_path", str(latest),
+            "--gait_conditioning", "--action_mode", "centered",
+            "--num_parallel_envs", str(r["envs"]), "--n_steps", str(r["n_steps"]),
+            "--num_minibatches", "2", "--n_epochs", "1",
+            "--total_timesteps", str(step0 + per_iter),
+            "--eval_max_time", str(r["eval_steps"] * 0.02), "--no_videos",
+            "--seed", str(seed), "--run_name", "orbax_resume"])
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        rep["launches"]["resume"] = read_launches(
+            "orbax resume", (r["n_steps"] + r["eval_steps"]) * 10)
+        tree = trees["latest_checkpoint"]
+        cpu_policy = policy_from_jax(tree["params"], device="cpu")
+        adam = opt_state_from_jax(tree["opt_state"]["1"]["0"], cpu_policy)
+        want = [adam[p] for p in cpu_policy.parameters()]   # optimizer order
+        loaded = inst.loaded[latest.name]
+        same_params = all(torch.equal(loaded["policy"][k], w)
+                          for k, w in cpu_policy.state_dict().items())
+        same_adam = len(loaded["optimizer"]) == len(want) and all(
+            torch.equal(loaded["optimizer"][i][k], w[k])
+            for i, w in enumerate(want) for k in ("step", "exp_avg", "exp_avg_sq"))
+        if not (same_params and same_adam):
+            raise RuntimeError(f"orbax resume: restored params equal {same_params}, "
+                               f"Adam state equal {same_adam} to the arrays read")
+        final = work / run_dir / "final_model"
+        final_meta = json.loads((final / "metadata.json").read_text())
+        if final_meta.get("global_step") != step0 + per_iter:
+            raise RuntimeError(f"orbax resume: final metadata {final_meta}")
+        m = inst.metrics[-1]
+        if len(inst.metrics) != 1 or not all(
+                math.isfinite(m[k]) for k in ("loss", "approx_kl")):
+            raise RuntimeError(f"orbax resume: metrics {inst.metrics}")
+        ckpt.load_train_state(final, ts)
+        if not same_state(inst.saved["final_model"], inst.loaded["final_model"]):
+            raise RuntimeError("orbax resume: final_model reloads to another state")
+        rep["resume"] = {"global_step": [step0, final_meta["global_step"]],
+                         "approx_kl": m["approx_kl"], "loss": m["loss"],
+                         "adam_step": float(want[0]["step"]), "seconds": resume_s}
+        log(f"orbax resume (cli.train.main --model_path "
+            f"multigait-r5/latest_checkpoint, {r['envs']} envs x "
+            f"{r['n_steps']} steps, one iteration and an eval of "
+            f"{r['eval_steps']} steps): {resume_s:.1f} s; params and Adam state "
+            f"(step {float(want[0]['step']):.0f}) restored bit for bit as read; "
+            f"global step {step0} -> {final_meta['global_step']}; loss "
+            f"{m['loss']:.4e}, approx_kl {m['approx_kl']:.4e}; final_model "
+            f"reloads to the state saved; Newton launches "
+            f"{rep['launches']['resume']}")
+    finally:
+        inst.restore()
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    return rep
+
+
 PAR_RANKS = 2               # gloo ranks sharing the card
 PAR_TIMEOUT_S = 300.0       # a rank set that runs longer is killed: failure
 COLLECTIVE_REPS = 50
@@ -1827,10 +2075,12 @@ def main() -> int:
     brep = phase_breadth(dev, args.envs, args.seed)
     # 7. the training CLI, resume, playback, gate and capacity probe
     rrep = phase_runner(args.seed)
-    # 8. data parallelism: gloo ranks on this card, the dry run, NCCL
+    # 8. the JAX package's orbax checkpoints: read, gate, playback, resume
+    orep = phase_orbax(args.seed)
+    # 9. data parallelism: gloo ranks on this card, the dry run, NCCL
     prep = phase_parallel(args.seed, trep["iterations"][0])
 
-    # 9. report
+    # 10. report
     sets = ["reset", "after_steps", "stiff", *brep["kernel_sets"]]
     over = ("envs whose float32 solve is stable (noise floor <= 1e-4), "
             "2 Newton iterations, qacc and qfrc, over the input sets "
@@ -1852,6 +2102,17 @@ def main() -> int:
                          "x 50 steps"),
             ("gate", "evaluate_gate, 8 envs x 50 steps"),
             ("capacity", "probe at 1024, 4096, 16384 envs, 2 x 5 steps each"),
+        )})
+    by_path.update({
+        f"orbax {name}: {what}": orep["launches"][name]
+        for name, what in (
+            ("gate", f"evaluate_gate on walk_r5_progress, 8 envs x "
+                     f"{int(ORBAX_GATE_TIME / 0.02)} steps"),
+            ("playback", "cli.train.run_test on multigait-r5/best_model, 4 "
+                         "envs x 50 steps"),
+            ("resume", f"cli.train.main from multigait-r5/latest_checkpoint, "
+                       f"1 iteration of {ORBAX_RESUME['n_steps']} steps + 1 "
+                       f"eval of {ORBAX_RESUME['eval_steps']} steps"),
         )})
     for name, counts in prep["launches"].items():
         what = ("multichip_train_iteration, 2048 of 4096 envs x 32 control "
@@ -1897,6 +2158,7 @@ def main() -> int:
         "train": trep,
         "breadth": brep,
         "runner": rrep,
+        "orbax": orep,
         "parallel": {k: v for k, v in prep.items() if k != "launches"},
     }))
     log(f"chip_smoke: every phase passed in "

@@ -21,9 +21,14 @@ The optimizer's hyperparameters are not stored either: a resume runs
 with its own PPOConfig, and Adam's `capturable` flag follows the device
 (learn/ppo.py:make_optimizer).
 
-The JAX package's orbax layout (a `params/` or `train_state/` folder)
-is refused with an error that says how to convert it; it is never read
-as if it were this format.
+The JAX package's orbax directories (`params/` for a policy,
+`train_state/` for the full state: params, the optax state, rand_power
+and the JAX key `rng`) are read too, without JAX (orbax_format.py over
+ocdbt.py and zstd.py): the loaders below take either layout.  From an
+orbax train state, Adam's step and moments come from the optax
+ScaleByAdamState, and the generator is re-seeded from a hash of the JAX
+key's bytes, as a state saved on the other device type is.  This module
+writes only its own format.
 
 `TrainingHistory` is a copy of the reference's: its JSON is
 interchangeable with the reference's in both directions.
@@ -35,7 +40,10 @@ import hashlib
 import json
 from pathlib import Path
 
+import numpy as np
 import torch
+
+from .orbax_format import read_tree
 
 POLICY_FILE = "policy.pt"
 TRAIN_STATE_FILE = "train_state.pt"
@@ -66,17 +74,14 @@ def _read_metadata(path: Path) -> dict:
 def _payload(path: Path, name: str) -> dict:
     f = path / name
     if not f.exists():
-        for orbax in ("params", "train_state"):
-            if (path / orbax).is_dir():
-                raise ValueError(
-                    f"{path} is a JAX (orbax) checkpoint ({orbax}/), not a "
-                    "quadruped_tpu_torch one: convert it first, e.g. load "
-                    "its params with quadruped_tpu.checkpoint.load_policy "
-                    "and write them with "
-                    "quadruped_tpu_torch.convert.write_best_model"
-                )
-        raise FileNotFoundError(f"no {name} in {path}")
+        raise FileNotFoundError(f"no {name}, params/ or train_state/ in {path}")
     return torch.load(f, map_location="cpu", weights_only=True)
+
+
+def _is_orbax(path: Path, file: str, folder: str) -> bool:
+    """Whether `path` holds the JAX package's orbax `folder` and not the
+    port's `file`."""
+    return not (path / file).exists() and (path / folder).is_dir()
 
 
 def _load_module(policy: torch.nn.Module, state: dict):
@@ -94,18 +99,24 @@ def save_policy(path, policy: torch.nn.Module, metadata: dict | None = None):
 
 def load_policy(path, like: torch.nn.Module):
     """Load a policy's weights into `like` (in place, on its device) ->
-    (like, metadata)."""
+    (like, metadata).  `path` holds policy.pt or an orbax params/."""
     path = _as_path(path)
-    _load_module(like, _payload(path, POLICY_FILE)["policy"])
+    if _is_orbax(path, POLICY_FILE, "params"):
+        from ..convert import load_flax
+
+        load_flax(like, read_tree(path / "params"))
+    else:
+        _load_module(like, _payload(path, POLICY_FILE)["policy"])
     return like, _read_metadata(path)
 
 
 def load_policy_any(path, ts):
     """Load policy weights from either artifact layout into ts.policy.
 
-    best_model dirs carry `policy.pt` (save_policy); periodic
-    checkpoint_N dirs carry the full `train_state.pt` (save_train_state)
-    and no separate policy copy; returns (policy, metadata)."""
+    best_model dirs carry `policy.pt` (save_policy) or, from the JAX
+    package, `params/`; periodic checkpoint_N dirs carry the full
+    `train_state.pt` (save_train_state) or `train_state/` and no separate
+    policy copy; returns (policy, metadata)."""
     path = _as_path(path)
     if (path / POLICY_FILE).exists() or (path / "params").is_dir():
         return load_policy(path, ts.policy)
@@ -132,25 +143,57 @@ def save_train_state(path, ts, metadata: dict | None = None):
     _write_metadata(path, metadata)
 
 
+def _reseed(gen: torch.Generator, state: bytes):
+    """Seed `gen` from a hash of a foreign generator state: deterministic,
+    but another stream than the saving run's."""
+    digest = hashlib.sha256(state).digest()
+    gen.manual_seed(int.from_bytes(digest[:8], "little") >> 1)
+
+
 def _restore_generator(gen: torch.Generator, saved: dict):
     """Restore the generator's state.  torch's CPU (mt19937) and CUDA
     (philox) generators keep states of different formats, so a state from
     the other device type re-seeds the generator from a hash of that
-    state instead: deterministic, but another stream than the saving
-    run's."""
+    state instead."""
     if saved["device"] == gen.device.type:
         gen.set_state(saved["state"])
     else:
-        digest = hashlib.sha256(saved["state"].numpy().tobytes()).digest()
-        gen.manual_seed(int.from_bytes(digest[:8], "little") >> 1)
+        _reseed(gen, saved["state"].numpy().tobytes())
+
+
+def _load_orbax_train_state(ts, tree: dict):
+    """Params, Adam state, rand_power and generator from the tree of the
+    JAX package's train_state/ (its optax chain: clip_by_global_norm's
+    empty state, then adam's (ScaleByAdamState, empty state))."""
+    from ..convert import load_flax, opt_state_from_jax
+
+    missing = {"params", "opt_state", "rand_power", "rng"} - tree.keys()
+    if missing:
+        raise ValueError(f"orbax train_state without {sorted(missing)}")
+    load_flax(ts.policy, tree["params"])
+    try:
+        adam = tree["opt_state"]["1"]["0"]
+    except (KeyError, TypeError):
+        raise ValueError("orbax train_state: opt_state['1']['0'] is not "
+                         "the reference chain's ScaleByAdamState") from None
+    opt = ts.optimizer
+    opt.state.clear()
+    opt.state.update(opt_state_from_jax(adam, ts.policy))
+    ts.rand_power = torch.as_tensor(
+        np.asarray(tree["rand_power"], np.float32)).to(ts.rand_power.device)
+    _reseed(ts.generator, np.asarray(tree["rng"], "<u4").tobytes())
 
 
 def load_train_state(path, ts):
     """Restore policy/optimizer/curriculum/generator into an initialized
-    TrainState -> (ts, metadata).  Adam's moments go to the parameters'
+    TrainState -> (ts, metadata), from train_state.pt or the JAX
+    package's orbax train_state/.  Adam's moments go to the parameters'
     device; its step counter goes there too when the optimizer is
     capturable (the card) and stays on the host otherwise."""
     path = _as_path(path)
+    if _is_orbax(path, TRAIN_STATE_FILE, "train_state"):
+        _load_orbax_train_state(ts, read_tree(path / "train_state"))
+        return ts, _read_metadata(path)
     payload = _payload(path, TRAIN_STATE_FILE)
     _load_module(ts.policy, payload["policy"])
     opt = ts.optimizer

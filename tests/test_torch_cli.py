@@ -20,6 +20,7 @@ import io
 import json
 import shutil
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -269,6 +270,48 @@ def test_run_test_plays_artifact(trained, monkeypatch):
     names = [f"test_ep{i}_r{ep_rew[i]:.1f}.mp4" for i in range(2)]
     assert sorted(p.name for p in (work / "eval_videos").glob("*.mp4")) == sorted(names)
     assert text.count("  recorded eval_videos/test_ep") == 2
+
+
+def test_run_test_plays_orbax_artifact(monkeypatch, tmp_path):
+    """`--run test` on the JAX package's multi-gait best_model, read from
+    its orbax params/ with no conversion: the env its metadata names
+    (position servos, centered actions, gait conditioning), one episode
+    cut to 2 control steps, the policy holding the checkpoint's weights."""
+    from quadruped_tpu_torch.checkpoint.orbax_format import read_tree
+    from quadruped_tpu_torch.convert import flax_pairs
+
+    best = Path(__file__).resolve().parent.parent / "results" / "live" \
+        / "multigait-r5" / "best_model"
+    monkeypatch.chdir(tmp_path)
+    make_config = tcli.make_config
+    envs, loaded = [], []
+
+    def short_env(args, device=None):
+        cfg = dataclasses.replace(make_config(args), max_episode_time=0.04)
+        envs.append(Go1Env(cfg, device=device))
+        return envs[-1]
+
+    load_policy_any = tckpt.load_policy_any
+
+    def spy(path, ts):
+        policy, meta = load_policy_any(path, ts)
+        loaded.append(policy)
+        return policy, meta
+
+    monkeypatch.setenv("QTPU_FORCE_CPU", "1")
+    monkeypatch.setattr(tcli, "make_env", short_env)
+    monkeypatch.setattr(tckpt, "load_policy_any", spy)
+    (ep_rew, ep_len, _success, out), text = _main(
+        ["--run", "test", "--model_path", str(best), "--num_test_episodes",
+         "1", "--contact_pools", "8,28,12", "--solver_iterations", "2"])
+    cfg = envs[0].cfg
+    assert (cfg.ctrl_type, cfg.action_mode, cfg.gait_conditioning) == (
+        "position", "centered", True)
+    assert envs[0].obs_dim == 53
+    assert ep_len.tolist() == [2] and np.isfinite(ep_rew).all()
+    assert np.isfinite(out["qpos"]).all() and "episode 0: reward" in text
+    for param, value in flax_pairs(loaded[0], read_tree(best / "params")):
+        assert np.array_equal(param.detach().numpy(), value)
 
 
 class ZeroRewardEnv(Go1Env):

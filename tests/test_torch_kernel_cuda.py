@@ -19,7 +19,8 @@ cycles add up; the launch plan the kernel's host code computes fits the
 card's shared memory, and layouts it cannot hold raise; a short PPO
 train_iteration runs on the card; a train state saved on the card loads
 on the CPU and the other way round, equal; 2 data-parallel gloo ranks on
-the card agree with one process on the same batch; one control step of the
+the card agree with one process on the same batch; the gate on the JAX
+package's orbax train state finds healthy full episodes; one control step of the
 position-servo Go2 env, of the rough-terrain env and of the plane env
 on the card agrees with the CPU.
 """
@@ -287,6 +288,23 @@ def test_checkpoint_card_to_cpu(tmp_path):
     assert all(s["step"].device.type == "cuda" for s in tg.optimizer.state.values())
     tg, metrics = card.train_iteration(tg)
     assert all(torch.isfinite(v).item() for v in metrics.values())
+
+
+def test_gate_on_orbax_train_state():
+    """The gate on the JAX package's results/walk_r5_progress (an orbax
+    train_state/, read by the port's reader) at 2 s per episode on the
+    card: healthy and full episodes, as the JAX package's 20-s gate found
+    them on these weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pathlib import Path
+
+    from quadruped_tpu_torch.learn.gate import evaluate_gate
+
+    walk = Path(__file__).resolve().parent.parent / "results" / "walk_r5_progress"
+    v = evaluate_gate(walk, episodes=8, eval_time=2.0)
+    assert v["healthy_ok"] and v["length_ok"], v
+    assert v["mean_length"] == 100.0
 
 
 @pytest.mark.parametrize("option", ["go2_position", "rough_terrain", "plane"])

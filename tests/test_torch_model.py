@@ -169,11 +169,12 @@ def test_cholesky_matches():
 
 
 def test_port_imports_no_jax():
-    """The package and chip_smoke.py import with jax, flax, optax, orbax
-    and the JAX package blocked."""
+    """The package and chip_smoke.py import with jax, flax, optax, orbax,
+    tensorstore, zstandard and the JAX package blocked."""
     code = (
         "import sys\n"
-        "for n in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'quadruped_tpu'):\n"
+        "for n in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tensorstore',\n"
+        "          'zstandard', 'quadruped_tpu'):\n"
         "    sys.modules[n] = None\n"
         "import quadruped_tpu_torch\n"
         "from quadruped_tpu_torch import convert\n"
@@ -183,6 +184,7 @@ def test_port_imports_no_jax():
         "from quadruped_tpu_torch.models import actor_critic\n"
         "from quadruped_tpu_torch.learn import ppo, runner, gate\n"
         "from quadruped_tpu_torch import checkpoint, native\n"
+        "from quadruped_tpu_torch.checkpoint import ocdbt, orbax_format, zstd\n"
         "from quadruped_tpu_torch.utils import tb\n"
         "from quadruped_tpu_torch.viz import plots\n"
         "from quadruped_tpu_torch.cli import train, capacity\n"
@@ -193,7 +195,8 @@ def test_port_imports_no_jax():
         "from quadruped_tpu_torch.parallel import mesh, dryrun\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'optax', 'orbax', 'quadruped_tpu') "
+        "('jax', 'flax', 'optax', 'orbax', 'tensorstore', 'zstandard', "
+        "'quadruped_tpu') "
         "and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
     )

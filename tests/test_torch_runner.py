@@ -13,6 +13,7 @@ spool's bytes, the tfevents writer's bytes and the run-analysis helpers
 give the reference's results on the same inputs.
 """
 
+import copy
 import json
 import time
 from pathlib import Path
@@ -64,7 +65,8 @@ def close(t, j, tol, name):
 
 @pytest.fixture(scope="module")
 def gated(tmp_path_factory):
-    """(JAX verdict, port verdict, port artifact dir)."""
+    """(JAX verdict, port verdict, port artifact dir, the port's copy of
+    the initial states)."""
     jv = jgate.evaluate_gate(ARTIFACT, episodes=EPISODES,
                              eval_time=EVAL_TIME, seed=SEED)
     jenv = jv["_env"]
@@ -75,18 +77,18 @@ def gated(tmp_path_factory):
     params, meta = jckpt.load_policy(ARTIFACT, like)
     port_dir = tmp_path_factory.mktemp("artifact") / "best_model"
     write_best_model(port_dir, jax.tree.map(np.asarray, params), meta)
+    tinitial = state_from_jax(jax.tree.map(np.asarray, initial), device="cpu")
     tv = tgate.evaluate_gate(
         port_dir, episodes=EPISODES, eval_time=EVAL_TIME, seed=SEED,
-        device="cpu",
-        initial=state_from_jax(jax.tree.map(np.asarray, initial), device="cpu"),
+        device="cpu", initial=copy.deepcopy(tinitial),
     )
-    return jv, tv, port_dir
+    return jv, tv, port_dir, tinitial
 
 
 def test_eval_matches_reference(gated):
     """Episode returns and lengths, the qpos trajectory and every
     per-step output of the eval, from the same initial states."""
-    jv, tv, _ = gated
+    jv, tv, *_ = gated
     jo, to = jv["_out"], tv["_out"]
     assert tv["_env"].obs_dim == 53 and tv["_env"].cfg.action_mode == "centered"
     np.testing.assert_array_equal(tv["_ep_len"], jv["_ep_len"])
@@ -112,7 +114,7 @@ def test_eval_matches_reference(gated):
 def test_gait_metrics_and_gate_match_reference(gated):
     """The same gait_metrics key set, each value within the tolerance,
     and the gate's verdict: every number and every boolean."""
-    jv, tv, _ = gated
+    jv, tv, *_ = gated
     jg, tg = jv["_out"]["gait_metrics"], tv["_out"]["gait_metrics"]
     assert set(tg) == set(jg)
     for k in jg:
@@ -128,14 +130,20 @@ def test_gait_metrics_and_gate_match_reference(gated):
 
 def test_port_artifact_layout(gated):
     """The converted artifact is a port best_model (policy.pt beside the
-    reference's metadata.json) that loads on the CPU; the JAX artifact is
-    refused with an error that says to convert it."""
-    _, tv, port_dir = gated
+    reference's metadata.json) that loads on the CPU; the JAX artifact,
+    read directly from its orbax params/, gives the same verdict as the
+    converted one from the same initial states: every number and every
+    boolean."""
+    _, tv, port_dir, tinitial = gated
     assert sorted(p.name for p in port_dir.iterdir()) == ["metadata.json", "policy.pt"]
     assert json.loads((port_dir / "metadata.json").read_text()) == json.loads(
         (ARTIFACT / "metadata.json").read_text())
-    with pytest.raises(ValueError, match="convert"):
-        tgate.evaluate_gate(ARTIFACT, episodes=2, eval_time=0.02, device="cpu")
+    direct = tgate.evaluate_gate(ARTIFACT, episodes=EPISODES,
+                                 eval_time=EVAL_TIME, seed=SEED, device="cpu",
+                                 initial=copy.deepcopy(tinitial))
+    for k, v in tv.items():
+        if not k.startswith("_"):
+            assert direct[k] == v, k
 
 
 def _fake_out(rng, B=3, T=12, dt=0.02):
